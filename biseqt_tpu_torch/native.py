@@ -1,0 +1,241 @@
+"""ctypes binding to the shared C++ host tier (``pwnative.cpp``).
+
+The port compiles the JAX package's C++ source
+``biseqt_tpu/native/pwnative.cpp`` by path, with the flags of its
+``Makefile``, into this package's git-ignored ``build/`` directory the
+first time it is needed; the source is shared, never forked, and
+nothing is written into ``biseqt_tpu/``.  Only what the transcript path
+uses is bound: :func:`traceback_batch_ad` (the host walker over a dirs
+plane) and :func:`compact_sweep_ops_t` (op traces -> MSID transcripts).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+
+import numpy as np
+
+__all__ = [
+    "available", "traceback_batch_ad", "compact_sweep_ops_t",
+    "MODE_FREE_START_EDGES", "MODE_LOCAL_START",
+    "MODE_FREE_END_EDGES", "MODE_LOCAL_END",
+]
+
+MODE_FREE_START_EDGES = 1
+MODE_LOCAL_START = 2
+MODE_FREE_END_EDGES = 4
+MODE_LOCAL_END = 8
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(os.path.dirname(_PKG), "biseqt_tpu", "native",
+                      "pwnative.cpp")
+BUILD_DIR = os.path.join(_PKG, "build")
+_SO = os.path.join(BUILD_DIR, "libpwnative.so")
+# the flags of biseqt_tpu/native/Makefile
+_CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-Wall",
+             "-std=c++17"]
+
+# Must match bst_abi_version() in pwnative.cpp: the argtypes below
+# describe this version's signatures, and calling a library built from
+# another version through them shifts pointer arguments.
+_ABI_VERSION = 2
+
+_lib = None
+
+
+def _build():
+    """Compile the shared source into ``build/libpwnative.so``.  The
+    library is written under a temporary name and renamed into place,
+    so concurrent test workers never load a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", tmp, SOURCE],
+            check=True, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        )
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    if (not os.path.exists(_SO)
+            or os.path.getmtime(SOURCE) > os.path.getmtime(_SO)):
+        _build()
+    lib = ctypes.CDLL(_SO)
+    so_abi = int(lib.bst_abi_version())
+    if so_abi != _ABI_VERSION:
+        raise RuntimeError(
+            "%s has ABI version %d, the binding expects %d — delete it to "
+            "rebuild" % (_SO, so_abi, _ABI_VERSION))
+    lib.bst_traceback_ad_batch.restype = ctypes.c_int
+    lib.bst_traceback_ad_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_compact_sweep_batch_t.restype = ctypes.c_int
+    lib.bst_compact_sweep_batch_t.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    _lib = lib
+    return lib
+
+
+def available() -> bool:
+    """Whether the C++ tier loads (building it first if needed)."""
+    try:
+        _load()
+        return True
+    except (OSError, subprocess.CalledProcessError, RuntimeError):
+        return False
+
+
+def _flags_of(mode_flags) -> int:
+    f = 0
+    if getattr(mode_flags, "free_start_edges", False):
+        f |= MODE_FREE_START_EDGES
+    if getattr(mode_flags, "local_start", False):
+        f |= MODE_LOCAL_START
+    if getattr(mode_flags, "free_end_edges", False):
+        f |= MODE_FREE_END_EDGES
+    if getattr(mode_flags, "local_end", False):
+        f |= MODE_LOCAL_END
+    return f
+
+
+def _decode(ops_buf, ops_len):
+    return [ops_buf[b, : ops_len[b]].tobytes().decode("ascii")
+            for b in range(ops_buf.shape[0])]
+
+
+def traceback_batch_ad(dirs, dminq, s_codes, t_codes, s_lens, t_lens,
+                       end_i, end_j, mode_flags):
+    """Batched host traceback over the packed antidiagonal dirs plane.
+
+    ``dirs``: [Apad // 2, B2, W] uint8 (numpy), the row-major plane of
+    :func:`biseqt_tpu_torch.ops.dp_ad.banded_dp_ad` — pairs
+    (2*b2, 2*b2+1) share column b2, steps (2r, 2r+1) share byte row r
+    (low/high nibble).  ``dminq``: the parity-adjusted band starts
+    [B].  Returns ``(ops list[str], start_i int32[B], start_j int32[B])``.
+    """
+    lib = _load()
+    dirs = np.ascontiguousarray(dirs, np.uint8)
+    rows, b2_cols, W = dirs.shape
+    s_codes = np.ascontiguousarray(s_codes, np.int8)
+    t_codes = np.ascontiguousarray(t_codes, np.int8)
+    i32 = lambda x: np.ascontiguousarray(x, np.int32)
+    dminq, s_lens, t_lens, end_i, end_j = map(
+        i32, (dminq, s_lens, t_lens, end_i, end_j))
+    B = int(s_codes.shape[0])
+    if 2 * b2_cols < B:
+        raise ValueError("dirs plane has %d pair columns but %d pairs"
+                         % (b2_cols, B))
+    ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
+    ops_buf = np.zeros((B, ops_stride), np.uint8)
+    start_i = np.zeros((B,), np.int32)
+    start_j = np.zeros((B,), np.int32)
+    ops_len = np.zeros((B,), np.int32)
+    rc = lib.bst_traceback_ad_batch(
+        dirs.ctypes.data, rows, b2_cols, W, dminq.ctypes.data,
+        s_codes.ctypes.data, s_codes.shape[1],
+        t_codes.ctypes.data, t_codes.shape[1],
+        s_lens.ctypes.data, t_lens.ctypes.data,
+        end_i.ctypes.data, end_j.ctypes.data,
+        _flags_of(mode_flags), B, ops_stride,
+        ops_buf.ctypes.data, start_i.ctypes.data, start_j.ctypes.data,
+        ops_len.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError("bst_traceback_ad_batch failed (%d)" % rc)
+    bad = np.nonzero(ops_len < 0)[0]
+    if bad.size:
+        raise RuntimeError(
+            "AD traceback walk left the byte plane for pairs %s — wrong "
+            "dminq, wrong end cell, or corrupted dirs" % bad[:8].tolist())
+    return _decode(ops_buf, ops_len), start_i, start_j
+
+
+def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
+                        t_lens, mode_flags):
+    """Turn the walk's op traces into MSID transcripts.
+
+    ``trace``: [2, Atr, B2cols] uint8 (numpy) from
+    :func:`biseqt_tpu_torch.ops.walk.traceback_walk` — pair b owns
+    column b // 2 of plane b % 2; ``fin_i`` / ``fin_j``: the walk's
+    final cursors [B] (-1 = skipped pair).  Every live cursor must lie
+    inside its pair's matrix (``0 <= fin_i <= s_len``,
+    ``0 <= fin_j <= t_len``): the C++ replay does not bound its reads,
+    so a cursor from a faulty walk would otherwise read a neighbouring
+    pair's row.  Returns ``(ops list[str], start_i, start_j)``.
+    """
+    lib = _load()
+    trace = np.ascontiguousarray(trace, np.uint8)
+    if trace.ndim != 3 or trace.shape[0] != 2:
+        raise ValueError("trace must be [2, Atr, B2cols], got %s"
+                         % (trace.shape,))
+    _, atr, b2_cols = trace.shape
+    s_codes = np.ascontiguousarray(s_codes, np.int8)
+    t_codes = np.ascontiguousarray(t_codes, np.int8)
+    fin_i = np.ascontiguousarray(fin_i, np.int32)
+    fin_j = np.ascontiguousarray(fin_j, np.int32)
+    B = int(s_codes.shape[0])
+    if 2 * b2_cols < B or fin_i.shape[0] < B or fin_j.shape[0] < B:
+        raise ValueError("trace %s / cursors too small for %d pairs"
+                         % (trace.shape, B))
+    s_lens = np.asarray(s_lens, np.int64)[:B]
+    t_lens = np.asarray(t_lens, np.int64)[:B]
+    fi, fj = fin_i[:B], fin_j[:B]
+    live = (fi >= 0) & (fj >= 0)
+    bad = np.nonzero(live & ((fi > s_lens) | (fj > t_lens)))[0]
+    if bad.size:
+        raise ValueError(
+            "walk cursors outside their pair's matrix for pairs %s "
+            "(fin_i %s, fin_j %s)" % (bad[:8].tolist(),
+                                      fi[bad[:8]].tolist(),
+                                      fj[bad[:8]].tolist()))
+    ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
+    ops_buf = np.zeros((B, ops_stride), np.uint8)
+    ops_len = np.zeros((B,), np.int32)
+    rc = lib.bst_compact_sweep_batch_t(
+        trace.ctypes.data, atr, b2_cols,
+        s_codes.ctypes.data, s_codes.shape[1],
+        t_codes.ctypes.data, t_codes.shape[1],
+        fin_i.ctypes.data, fin_j.ctypes.data,
+        _flags_of(mode_flags), B, ops_stride,
+        ops_buf.ctypes.data, ops_len.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError("bst_compact_sweep_batch_t failed (%d)" % rc)
+    bad = np.nonzero(ops_len < 0)[0]
+    if bad.size:
+        raise RuntimeError(
+            "sweep trace replay overran for pairs %s — corrupted trace or "
+            "mismatched final cursors" % bad[:8].tolist())
+    # anchored modes prepend D^i I^j tails, so the reported start is
+    # (0, 0); skipped pairs keep -1
+    f = _flags_of(mode_flags)
+    anchored = not (f & (MODE_LOCAL_START | MODE_FREE_START_EDGES))
+    si = fi.copy()
+    sj = fj.copy()
+    if anchored:
+        started = fi >= 0
+        si[started] = 0
+        sj[started] = 0
+    return _decode(ops_buf, ops_len), si, sj

@@ -1,0 +1,256 @@
+"""Batched banded extension of candidate segments, with transcripts.
+
+The port of :func:`biseqt_tpu.pipeline.extend_segments` (the
+reference's ``pwlib`` solve + traceback contract as this framework
+serves it).  Every candidate's (d, a) rectangle is cut out of both
+sequences, segments are grouped by bucketed cutout shape, and each
+group is extended in launches of the antidiagonal DP kernel
+(:mod:`.ops.dp_ad`).  With transcripts, each launch writes the
+direction plane, the walk kernel (:mod:`.ops.walk`) turns it into a
+2-bit op trace on the device, and the shared C++ tier compacts the
+trace into MSID transcripts (:func:`.native.compact_sweep_ops_t`).
+
+Launch geometry (window split, cuts, shape buckets, per-launch caps,
+batch padding) is the JAX package's, so both packages launch the same
+problems and their results can be compared exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from . import native
+from .ops.banded_dp import ModeFlags, resolve_device
+from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
+from .ops.walk import traceback_walk
+from .profiling import Phase
+
+__all__ = ["extend_segments", "cut_segment", "plan_launches",
+           "launch_inputs", "PAD_RADIUS", "PAD_A"]
+
+# default growth of a segment's rectangle: discovery quantizes to coarse
+# cells, and the alignment must be free to extend past the seed core
+PAD_RADIUS = 16   # diagonals on each side
+PAD_A = 512       # antidiagonals on each end
+
+# per-launch budget of sequence characters plus, with transcripts, dirs
+# plane bytes (sized for the JAX package's TPU: see ROADMAP)
+STREAM_CHAR_BUDGET = 400_000_000
+
+
+def _bucket(n, mini=128):
+    """Round up to a half-power-of-two grid (1M, 1.5M, 2M, 3M, ...):
+    the JAX package's shape buckets for lengths, band widths and batch
+    sizes."""
+    n = max(int(n), 1)
+    if n <= mini:
+        return mini
+    step = max(mini, 1 << (max(n.bit_length(), 2) - 2))
+    return ((n + step - 1) // step) * step
+
+
+def _split_windows(segments, pad_radius, pad_a, dirs_budget):
+    """Split segments whose antidiagonal span would exceed the dirs plane
+    budget into overlapping a-windows; returns the rows to extend and,
+    for each, the index of the segment it came from."""
+    split, src_idx = [], []
+    for k, seg in enumerate(segments):
+        (d_lo, d_hi), (a_lo, a_hi) = seg["segment"]
+        # the same bucketing as the launch's W, so the budget bounds
+        # the real plane
+        W_est = _bucket(d_hi - d_lo + 1 + 2 * pad_radius, mini=128)
+        max_a = max(2 * dirs_budget // W_est, 8 * pad_a)
+        span = a_hi - a_lo + 1
+        if span <= max_a:
+            split.append(seg)
+            src_idx.append(k)
+            continue
+        n_win = -(-span // max_a)
+        step = -(-span // n_win)
+        for w in range(n_win):
+            lo = a_lo + w * step
+            hi = min(lo + step + 2 * pad_a, a_hi)
+            sub = dict(seg)
+            sub["segment"] = ((d_lo, d_hi), (lo, hi))
+            split.append(sub)
+            src_idx.append(k)
+    return split, src_idx
+
+
+def cut_segment(seg, len_s, len_t, pad_radius=PAD_RADIUS, pad_a=PAD_A):
+    """The padded (i, j) rectangle of a segment and its band relative to
+    the cutouts: ``(i_lo, i_hi, j_lo, j_hi, d_lo', d_hi')``."""
+    (d_lo, d_hi), (a_lo, a_hi) = seg["segment"]
+    d_lo -= pad_radius
+    d_hi += pad_radius
+    a_lo -= pad_a
+    a_hi += pad_a
+    i_lo = max((a_lo + d_lo) // 2, 0)
+    i_hi = min((a_hi + d_hi + 1) // 2 + 1, len_s)
+    j_lo = max((a_lo - d_hi) // 2, 0)
+    j_hi = min((a_hi - d_lo + 1) // 2 + 1, len_t)
+    i_hi = max(i_hi, i_lo + 1)
+    j_hi = max(j_hi, j_lo + 1)
+    off = i_lo - j_lo
+    return (i_lo, i_hi, j_lo, j_hi, d_lo - off, d_hi - off)
+
+
+def plan_launches(cut, with_transcripts: bool):
+    """The launches of a list of cuts: ``(idxs, LS, LT, W)`` per launch.
+    Cuts are grouped by bucketed shape, and each group is cut into
+    launches under the per-launch budget."""
+    groups: Dict[tuple, List[int]] = {}
+    for idx, c in enumerate(cut):
+        key = (_bucket(c[1] - c[0]), _bucket(c[3] - c[2]),
+               _bucket(c[5] - c[4] + 1, mini=128))
+        groups.setdefault(key, []).append(idx)
+    launches = []
+    for (LS, LT, W), idxs in sorted(groups.items()):
+        per_pair = LS + LT + 2 * W
+        if with_transcripts:
+            # the dirs plane (~(LS + LT) * W / 4 bytes per pair)
+            # dominates the launch's memory
+            per_pair += (LS + LT + 2 * W) * W // 4
+        cap = max(2, 2 * (STREAM_CHAR_BUDGET // max(per_pair, 1)))
+        for k in range(0, len(idxs), cap):
+            launches.append((idxs[k:k + cap], LS, LT, W))
+    return launches
+
+
+def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
+                  with_transcripts: bool):
+    """The numpy inputs of one launch: the batch is padded with inert
+    length-1 pairs to a bucketed size, each pair's band is the top
+    ``min(width, W - 1)`` diagonals of ``[dmin, dmin + W)``, and
+    ``dminq`` holds the parity-adjusted band starts the walk reads."""
+    n_pad = _bucket(len(idxs), mini=2 if with_transcripts else 8)
+    s_codes = np.zeros((n_pad, LS), np.int8)
+    t_codes = np.zeros((n_pad, LT), np.int8)
+    s_lens = np.ones((n_pad,), np.int32)
+    t_lens = np.ones((n_pad,), np.int32)
+    dmin = np.zeros((n_pad,), np.int32)
+    w_eff = np.ones((n_pad,), np.int32)
+    for b, idx in enumerate(idxs):
+        i_lo, i_hi, j_lo, j_hi, dl, dh = cut[idx]
+        s_lens[b] = i_hi - i_lo
+        t_lens[b] = j_hi - j_lo
+        s_codes[b, : s_lens[b]] = s_arr[i_lo:i_hi]
+        t_codes[b, : t_lens[b]] = t_arr[j_lo:j_hi]
+        # pad on the dmin side to the shared W (the lane mask trims it)
+        dmin[b] = dh - W + 1
+        w_eff[b] = min(dh - dl + 1, W)
+    # one lane of slack absorbs the parity adjustment of dmin
+    w_eff = np.minimum(w_eff, W - 1)
+    dminq = parity_adjusted_dmin(dmin, np.arange(n_pad, dtype=np.int32) % 2)
+    return dict(s_codes=s_codes, t_codes=t_codes, s_lens=s_lens,
+                t_lens=t_lens, dmin=dmin, w_eff=w_eff, dminq=dminq)
+
+
+def extend_segments(S, T, segments: List[Dict], *, subst=None,
+                    go_score=-3.0, ge_score=-1.0,
+                    pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
+                    with_transcripts: bool = False, device="cpu",
+                    _dirs_budget: int = 512 << 20, _r_chunk: int = 128):
+    """Batched banded extension of candidate segments.
+
+    ``S`` / ``T``: sequences (anything with ``to_array()`` and ``len``);
+    ``segments``: dicts with ``"segment": ((d_lo, d_hi), (a_lo, a_hi))``
+    as Word-Blot discovery emits them.  Each segment's rectangle, grown
+    by ``pad_radius`` diagonals and ``pad_a`` antidiagonals, is aligned
+    in local mode.  Returns the segments with ``score``, ``band_cells``
+    and ``source_index`` (position in ``segments``) attached; with
+    ``with_transcripts`` also ``transcript`` (MSID string) and
+    ``origin_start`` / ``mutate_start`` (coordinates in the full S / T).
+    In transcript mode a segment whose antidiagonal span exceeds the
+    direction-plane budget is split into overlapping windows, so the
+    output may hold more rows than ``segments``: join on
+    ``source_index``.
+
+    ``device="cuda"`` runs the hand-written kernels; ``device="cpu"``
+    runs their plain PyTorch twins.
+    """
+    if not segments:
+        return []
+    device = resolve_device(device)
+    A = len(S.alphabet)
+    if subst is None:
+        subst = np.where(np.eye(A, dtype=bool), 1.0, -1.0).astype(np.float32)
+    subst = np.asarray(subst, np.float32)
+    s_arr = S.to_array()
+    t_arr = T.to_array()
+
+    if with_transcripts:
+        # every transcript is compacted by the C++ tier: fail before any
+        # launch when it is missing
+        if not native.available():
+            raise RuntimeError(
+                "extend_segments(with_transcripts=True) compacts op "
+                "traces with the native C++ tier, which is unavailable "
+                "(building biseqt_tpu/native/pwnative.cpp failed — is a "
+                "C++ toolchain installed?); run score-only "
+                "(with_transcripts=False)")
+        segments, src_idx = _split_windows(segments, pad_radius, pad_a,
+                                           int(_dirs_budget))
+    else:
+        src_idx = list(range(len(segments)))
+
+    cut = [cut_segment(seg, len(S), len(T), pad_radius, pad_a)
+           for seg in segments]
+    B = len(cut)
+    # local mode: the alignment starts and ends wherever the homology does
+    flags = ModeFlags(local_start=True, local_end=True)
+    scores = np.zeros((B,), np.float32)
+    ops = [""] * B
+    si_all = np.zeros((B,), np.int32)
+    sj_all = np.zeros((B,), np.int32)
+    put = lambda x: torch.from_numpy(x).to(device)
+
+    total_cells = sum(
+        int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
+    with Phase("pipeline.extend", cells=total_cells):
+        for idxs, LS, LT, W in plan_launches(cut, with_transcripts):
+            n = len(idxs)
+            x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
+                              with_transcripts)
+            with Phase("pipeline.launch"):
+                res = banded_dp_ad(
+                    put(x["s_codes"]), put(x["t_codes"]), put(x["s_lens"]),
+                    put(x["t_lens"]), put(x["dmin"]), W=W, subst=subst,
+                    go=float(go_score), ge=float(ge_score), flags=flags,
+                    w_eff=put(x["w_eff"]), with_dirs=with_transcripts,
+                    r_chunk=int(_r_chunk), device=device)
+                scores[idxs] = res.score[:n].cpu().numpy()
+                if not with_transcripts:
+                    continue
+                # padding pairs are skipped by the walk (-1 end cells)
+                real = torch.arange(len(x["dmin"]), device=device) < n
+                trace, fi, fj = traceback_walk(
+                    res.dirs, put(x["dminq"]),
+                    torch.where(real, res.end_i, -1),
+                    torch.where(real, res.end_j, -1), W=W, device=device)
+                del res
+                g_ops, g_si, g_sj = native.compact_sweep_ops_t(
+                    trace.cpu().numpy(), fi.cpu().numpy(), fj.cpu().numpy(),
+                    x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
+                    x["t_lens"][:n], flags)
+            for b, idx in enumerate(idxs):
+                ops[idx] = g_ops[b]
+                si_all[idx] = g_si[b]
+                sj_all[idx] = g_sj[b]
+
+    out = []
+    for b, seg in enumerate(segments):
+        seg = dict(seg)
+        seg["source_index"] = src_idx[b]
+        seg["score"] = float(scores[b])
+        seg["band_cells"] = int(
+            (cut[b][5] - cut[b][4] + 1) * (cut[b][1] - cut[b][0]))
+        if with_transcripts:
+            seg["transcript"] = ops[b]
+            seg["origin_start"] = int(cut[b][0] + si_all[b])
+            seg["mutate_start"] = int(cut[b][2] + sj_all[b])
+        out.append(seg)
+    return out

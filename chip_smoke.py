@@ -1,0 +1,306 @@
+"""Smoke run of the PyTorch + CUDA port (biseqt_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, batched banded extension with transcripts
+(``biseqt_tpu_torch.pipeline.extend_segments(..., with_transcripts=True,
+device="cuda")``), at the shape of the JAX package's transcript bench
+leg: 2048 homologous 10 kbp blocks (10% substitutions plus short indels
+that stay within +-50 diagonals, band 100), planted between random
+spacers of S and T, one Word-Blot-style segment dict per block.  Then
+one narrow launch of 12 segments.
+
+Phases, each of which exits non-zero on failure:
+
+1. builds both CUDA kernels (``csrc/*.cu``, nvcc, sm_90a) and the shared
+   C++ host tier from the checkout;
+2. runs the main path with the kernels' launch counters set to 0, and
+   requires every kernel to have been launched once per launch;
+3. rescores every transcript with affine gaps in numpy (exactly its
+   score) and requires transcripts to cover most of each block;
+4. on one full launch of the main path, holds the DP kernel (scores, end
+   cells, the dirs plane on its live slots) and the walk kernel (trace
+   bytes, cursors) to their plain PyTorch twins on the same CUDA
+   tensors, exactly, and the transcripts to the C++ host walker's over
+   the same plane;
+5. times each kernel and its plain twin with CUDA events at that
+   launch's shape, and the main path end to end.
+
+Prints a kernels JSON line, then the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``.  Fails (exit code
+not 0, no result) without a CUDA card or outside the repository.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+N_BLOCKS = 2048
+BLOCK = 10_000
+BAND = 100
+NARROW = 12
+GO, GE = -3.0, -1.0
+
+
+def fail(msg):
+    print("chip_smoke: FAILED: " + msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def plant(np, rng, alphabet, Sequence):
+    """S and T with N_BLOCKS homologous blocks between random spacers,
+    and one segment dict per block from the planted coordinates."""
+    s_parts, t_parts, segments = [], [], []
+    s_pos = t_pos = 0
+    half = BAND // 2
+    for _ in range(N_BLOCKS):
+        gap_s, gap_t = rng.integers(200, 1200, 2)
+        core = rng.integers(0, 4, BLOCK).astype(np.int8)
+        mut = core.copy()
+        hit = rng.random(BLOCK) < 0.10
+        mut[hit] = (mut[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        # six short indels: the diagonal drifts by at most 30 < BAND / 2
+        pieces, last = [], 0
+        for p in np.sort(rng.choice(np.arange(500, BLOCK - 500), 6,
+                                    replace=False)):
+            n = int(rng.integers(1, 6))
+            pieces.append(mut[last:p])
+            if rng.random() < 0.5:            # insertion into T
+                pieces.append(rng.integers(0, 4, n).astype(np.int8))
+                last = p
+            else:                             # deletion from T
+                last = p + n
+        pieces.append(mut[last:])
+        mut = np.concatenate(pieces)
+        i0, j0 = s_pos + int(gap_s), t_pos + int(gap_t)
+        d0 = i0 - j0
+        a_lo = i0 + j0
+        a_hi = (i0 + BLOCK) + (j0 + len(mut))
+        segments.append({"segment": ((d0 - half, d0 + half), (a_lo, a_hi)),
+                         "block": (i0, j0, BLOCK, len(mut))})
+        s_parts += [rng.integers(0, 4, int(gap_s)).astype(np.int8), core]
+        t_parts += [rng.integers(0, 4, int(gap_t)).astype(np.int8), mut]
+        s_pos, t_pos = i0 + BLOCK, j0 + len(mut)
+    S = Sequence(alphabet, np.concatenate(s_parts))
+    T = Sequence(alphabet, np.concatenate(t_parts))
+    return S, T, segments
+
+
+def rescore(np, ops, s, t, si, sj, subst):
+    """Affine-gap score of an MSID transcript starting at (si, sj), and
+    whether its M / S letters agree with the characters."""
+    if not ops:
+        return 0.0, True
+    o = np.frombuffer(ops.encode(), np.uint8)
+    diag = (o == ord("M")) | (o == ord("S"))
+    ins, dele = o == ord("I"), o == ord("D")
+    adv_i = (diag | dele).astype(np.int64)
+    adv_j = (diag | ins).astype(np.int64)
+    i = si + np.cumsum(adv_i) - adv_i
+    j = sj + np.cumsum(adv_j) - adv_j
+    cs, ct = s[i[diag]], t[j[diag]]
+    letters_ok = bool(np.all((cs == ct) == (o[diag] == ord("M"))))
+    prev = np.concatenate([np.zeros(1, np.uint8), o[:-1]])
+    opens = ((ins & (prev != ord("I"))).sum()
+             + (dele & (prev != ord("D"))).sum())
+    score = (subst[cs, ct].astype(np.float64).sum()
+             + GE * (ins.sum() + dele.sum()) + GO * opens)
+    return float(score), letters_ok
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
+    after one warm-up run."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    from biseqt_tpu_torch import _build, native
+    from biseqt_tpu_torch import pipeline
+    from biseqt_tpu_torch.ops import dp_ad, walk
+    from biseqt_tpu_torch.ops.banded_dp import ModeFlags
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
+                                     torch.cuda.get_device_name(0)))
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    for name, module in (("dp_ad", dp_ad), ("walk", walk)):
+        _build.load(name, module._declare)
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas %s: %s" % (name, line.strip()))
+    if not native.available():
+        fail("the shared C++ tier (pwnative.cpp) did not build")
+    print("build: %.1f s (both kernels and the C++ tier)"
+          % (time.perf_counter() - t0))
+
+    # -- data -------------------------------------------------------------
+    rng = np.random.default_rng(20261016)
+    A4 = Alphabet("ACGT")
+    t0 = time.perf_counter()
+    S, T, segments = plant(np, rng, A4, Sequence)
+    print("planted %d blocks of %d bp: |S| = %d, |T| = %d (%.1f s)"
+          % (N_BLOCKS, BLOCK, len(S), len(T), time.perf_counter() - t0))
+    subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+    kw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True,
+              device=dev)
+    # warm-up: CUDA context, allocator, library loads
+    pipeline.extend_segments(S, T, segments[:2], **kw)
+    torch.cuda.synchronize()
+
+    # -- 2. the main path, counted ---------------------------------------
+    dp_ad.LAUNCHES = 0
+    walk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = pipeline.extend_segments(S, T, segments, **kw)
+    e2e = time.perf_counter() - t0
+    narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
+    counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    cut = [pipeline.cut_segment(seg, len(S), len(T)) for seg in segments]
+    launches = pipeline.plan_launches(cut, True)
+    n_launches = len(launches) + len(pipeline.plan_launches(cut[:NARROW],
+                                                             True))
+    print("launches: %d planned, %s counted" % (n_launches, counts))
+    if any(c != n_launches for c in counts.values()):
+        fail("a kernel was not launched once per launch: %s" % counts)
+    cells = sum(seg["band_cells"] for seg in out)
+    print("extend_segments: %d segments in %d launches, %.3f s end to end,"
+          " %.3f GCUPS (band cells %d)"
+          % (len(out), len(launches), e2e, cells / e2e / 1e9, cells))
+
+    # -- 3. every transcript rescores to its score and covers its block -
+    s_arr, t_arr = S.to_array(), T.to_array()
+    short = 0
+    for seg in out + narrow:
+        tx = seg["transcript"]
+        got, letters_ok = rescore(np, tx, s_arr, t_arr, seg["origin_start"],
+                                  seg["mutate_start"], subst)
+        if got != seg["score"] or not letters_ok:
+            fail("transcript of segment %d rescores to %r, score %r"
+                 " (letters ok: %s)" % (seg["source_index"], got,
+                                        seg["score"], letters_ok))
+        i0, j0, ls, lt = seg["block"]
+        consumed_s = tx.count("M") + tx.count("S") + tx.count("D")
+        if consumed_s < 0.9 * ls:
+            short += 1
+    if short:
+        fail("%d transcripts cover less than 90%% of their block" % short)
+    print("transcripts: %d rescored exactly, all cover >= 90%% of their"
+          " block" % len(out + narrow))
+
+    # -- 4. kernels against their plain twins on one full launch --------
+    idxs, LS, LT, W = max(launches, key=lambda launch: len(launch[0]))
+    x = pipeline.launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr, True)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+    flags = ModeFlags(local_start=True, local_end=True)
+    args = (on["s_codes"], on["t_codes"], on["s_lens"], on["t_lens"],
+            on["dmin"])
+    dkw = dict(W=W, subst=subst, go=GO, ge=GE, flags=flags,
+               w_eff=on["w_eff"], with_dirs=True, device=dev)
+    print("full launch: %d pairs (%d real), LS %d, LT %d, W %d"
+          % (len(x["dmin"]), len(idxs), LS, LT, W))
+    got = dp_ad.banded_dp_ad(*args, **dkw)
+    t_plain = time.perf_counter()
+    want = dp_ad.banded_dp_ad_reference(*args, **dkw)
+    torch.cuda.synchronize()
+    dp_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    dp_err = float((got.score - want.score).abs().max())
+    if not (torch.equal(got.score, want.score)
+            and torch.equal(got.end_i, want.end_i)
+            and torch.equal(got.end_j, want.end_j)):
+        fail("DP kernel scores / end cells differ from the plain twin"
+             " (max |d score| %r)" % dp_err)
+    low_live, high_live = dp_ad.live_nibbles(on["dmin"], on["w_eff"], W)
+    gd, wd = got.dirs, want.dirs
+    bad = (((gd ^ wd) & 15).ne(0) & low_live).sum() \
+        + (((gd ^ wd) >> 4).ne(0) & high_live).sum()
+    if int(bad):
+        fail("DP kernel dirs plane differs from the plain twin on %d live"
+             " nibbles" % int(bad))
+    print("dp_ad kernel == plain twin: scores, end cells, dirs plane on"
+          " its live slots")
+
+    n = len(idxs)
+    real = torch.arange(len(x["dmin"]), device=dev) < n
+    ei = torch.where(real, got.end_i, -1)
+    ej = torch.where(real, got.end_j, -1)
+    w_got = walk.traceback_walk(got.dirs, on["dminq"], ei, ej, W=W,
+                                device=dev)
+    t_plain = time.perf_counter()
+    w_want = walk.traceback_walk_reference(got.dirs, on["dminq"], ei, ej,
+                                           W=W, device=dev)
+    torch.cuda.synchronize()
+    walk_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(w_got, w_want)):
+        fail("walk kernel trace / cursors differ from the plain twin")
+    walk_err = float((w_got[1] - w_want[1]).abs().max()
+                     + (w_got[2] - w_want[2]).abs().max())
+    print("walk kernel == plain twin: trace bytes and cursors")
+
+    tr, fi, fj = (v.cpu().numpy() for v in w_got)
+    ops, si, sj = native.compact_sweep_ops_t(
+        tr, fi, fj, x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
+        x["t_lens"][:n], flags)
+    h_ops, h_si, h_sj = native.traceback_batch_ad(
+        got.dirs.cpu().numpy(), x["dminq"][:n], x["s_codes"][:n],
+        x["t_codes"][:n], x["s_lens"][:n], x["t_lens"][:n],
+        got.end_i.cpu().numpy()[:n], got.end_j.cpu().numpy()[:n], flags)
+    if ops != h_ops or not (np.array_equal(si, h_si)
+                            and np.array_equal(sj, h_sj)):
+        fail("walk + compaction transcripts differ from the C++ host"
+             " walker's over the same plane")
+    print("transcripts == C++ host walker's on the full launch (%d pairs)"
+          % n)
+
+    # -- 5. kernel times at the launch's shape ----------------------------
+    dp_ms = cuda_ms(torch, lambda: dp_ad.banded_dp_ad(*args, **dkw), 3)
+    walk_ms = cuda_ms(torch, lambda: walk.traceback_walk(
+        got.dirs, on["dminq"], ei, ej, W=W, device=dev), 3)
+    launch_cells = sum(out[k]["band_cells"] for k in idxs)
+    print("dp_ad: kernel %.3f ms (%.1f GCUPS on band cells), plain %.0f ms"
+          % (dp_ms, launch_cells / dp_ms / 1e6, dp_plain_ms))
+    print("walk: kernel %.3f ms, plain %.0f ms" % (walk_ms, walk_plain_ms))
+
+    print(json.dumps({"kernels": [
+        {"name": "dp_ad", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
+         "replaces": "biseqt_tpu/ops/pallas_dp_ad.py:73",
+         "launches": counts["dp_ad"], "max_abs_err": dp_err,
+         "ms": dp_ms, "plain_ms": dp_plain_ms},
+        {"name": "walk", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/walk.cu",
+         "replaces": "biseqt_tpu/ops/pallas_walk.py:512",
+         "launches": counts["walk"], "max_abs_err": walk_err,
+         "ms": walk_ms, "plain_ms": walk_plain_ms},
+    ]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
