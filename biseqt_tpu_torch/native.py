@@ -4,9 +4,11 @@ The port compiles the JAX package's C++ source
 ``biseqt_tpu/native/pwnative.cpp`` by path, with the flags of its
 ``Makefile``, into this package's git-ignored ``build/`` directory the
 first time it is needed; the source is shared, never forked, and
-nothing is written into ``biseqt_tpu/``.  Only what the transcript path
-uses is bound: :func:`traceback_batch_ad` (the host walker over a dirs
-plane) and :func:`compact_sweep_ops_t` (op traces -> MSID transcripts).
+nothing is written into ``biseqt_tpu/``.  Bound: :func:`align` and
+:func:`traceback` (the host DP engine behind ``pw.Aligner(backend=
+"native")``), :func:`traceback_batch_ad` (the host walker over an
+antidiagonal dirs plane) and :func:`compact_sweep_ops_t` (op traces ->
+MSID transcripts).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import tempfile
 import numpy as np
 
 __all__ = [
-    "available", "traceback_batch_ad", "compact_sweep_ops_t",
+    "available", "align", "traceback", "traceback_batch_ad",
+    "compact_sweep_ops_t",
     "MODE_FREE_START_EDGES", "MODE_LOCAL_START",
     "MODE_FREE_END_EDGES", "MODE_LOCAL_END",
 ]
@@ -77,6 +80,20 @@ def _load():
         raise RuntimeError(
             "%s has ABI version %d, the binding expects %d — delete it to "
             "rebuild" % (_SO, so_abi, _ABI_VERSION))
+    lib.bst_align.restype = ctypes.c_int
+    lib.bst_align.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_traceback.restype = ctypes.c_int
+    lib.bst_traceback.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.bst_traceback_ad_batch.restype = ctypes.c_int
     lib.bst_traceback_ad_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -118,6 +135,57 @@ def _flags_of(mode_flags) -> int:
     if getattr(mode_flags, "local_end", False):
         f |= MODE_LOCAL_END
     return f
+
+
+def align(s, t, subst, go, ge, dmin, dmax, mode_flags, with_dirs=False):
+    """Host banded affine DP of one pair over diagonals ``[dmin, dmax]``
+    (``dmin = -len(t)``, ``dmax = len(s)`` for the full matrix); same
+    conventions as :func:`biseqt_tpu_torch.ops.banded_dp.banded_dp`.
+    Returns ``(score, end_i, end_j, dirs [len(s), W] uint8 or None)``
+    with ``W = dmax - dmin + 1`` and lane ``k`` the diagonal
+    ``dmax - k``."""
+    lib = _load()
+    s = np.ascontiguousarray(s, np.int8)
+    t = np.ascontiguousarray(t, np.int8)
+    subst = np.ascontiguousarray(subst, np.float32)
+    A = subst.shape[0]
+    W = int(dmax) - int(dmin) + 1
+    dirs = np.zeros((len(s), W), np.uint8) if with_dirs else None
+    score = ctypes.c_float()
+    ei = ctypes.c_int()
+    ej = ctypes.c_int()
+    rc = lib.bst_align(
+        s.ctypes.data, len(s), t.ctypes.data, len(t),
+        subst.ctypes.data, A, float(go), float(ge),
+        int(dmin), int(dmax), _flags_of(mode_flags),
+        ctypes.byref(score), ctypes.byref(ei), ctypes.byref(ej),
+        dirs.ctypes.data if dirs is not None else None,
+    )
+    if rc != 0:
+        raise RuntimeError("bst_align failed (%d)" % rc)
+    return float(score.value), int(ei.value), int(ej.value), dirs
+
+
+def traceback(dirs, dmax, s, t, end_i, end_j, mode_flags):
+    """Host walk over the ``[len(s), W]`` direction bytes of
+    :func:`align`; returns ``(ops_str, start_i, start_j)``."""
+    lib = _load()
+    dirs = np.ascontiguousarray(dirs, np.uint8)
+    W = dirs.shape[1]
+    s = np.ascontiguousarray(s, np.int8)
+    t = np.ascontiguousarray(t, np.int8)
+    buf = ctypes.create_string_buffer(len(s) + len(t) + 2)
+    si = ctypes.c_int()
+    sj = ctypes.c_int()
+    n = lib.bst_traceback(
+        dirs.ctypes.data, W, int(dmax),
+        s.ctypes.data, len(s), t.ctypes.data, len(t),
+        int(end_i), int(end_j), _flags_of(mode_flags),
+        buf, ctypes.byref(si), ctypes.byref(sj),
+    )
+    if n < 0:
+        raise RuntimeError("bst_traceback left the band (%d)" % n)
+    return buf.value.decode("ascii"), int(si.value), int(sj.value)
 
 
 def _decode(ops_buf, ops_len):

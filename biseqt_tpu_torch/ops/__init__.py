@@ -1,2 +1,3 @@
-"""Device-side ops: the banded-DP contract and the hand-written kernels
-(antidiagonal DP, traceback walk) with their plain PyTorch twins."""
+"""Device-side ops: the banded-DP contract and reference engine, and the
+hand-written kernels (antidiagonal DP, traceback walk, row DP) with
+their plain PyTorch twins."""

@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, batched banded extension with transcripts
-(``biseqt_tpu_torch.pipeline.extend_segments(..., with_transcripts=True,
-device="cuda")``), at the shape of the JAX package's transcript bench
-leg: 2048 homologous 10 kbp blocks (10% substitutions plus short indels
-that stay within +-50 diagonals, band 100), planted between random
-spacers of S and T, one Word-Blot-style segment dict per block.  Then
-one narrow launch of 12 segments.
+Drives the port's two paths on the card.  The batched path, banded
+extension with transcripts (``biseqt_tpu_torch.pipeline.extend_segments(
+..., with_transcripts=True, device="cuda")``), runs at the shape of the
+JAX package's transcript bench leg: 2048 homologous 10 kbp blocks (10%
+substitutions plus short indels that stay within +-50 diagonals, band
+100), planted between random spacers of S and T, one Word-Blot-style
+segment dict per block, then one narrow launch of 12 segments.  The
+pairwise path, ``pw.Aligner(..., backend="pallas_row", device="cuda")``,
+aligns a planted 100 kbp DNA pair and a 2,000-residue protein pair.
 
 Phases, each of which exits non-zero on failure:
 
-1. builds both CUDA kernels (``csrc/*.cu``, nvcc, sm_90a) and the shared
-   C++ host tier from the checkout;
+1. builds the three CUDA kernels (``csrc/*.cu``, nvcc, sm_90a, one
+   process each, all at once) and the shared C++ host tier from the
+   checkout;
 2. runs the main path with the kernels' launch counters set to 0, and
    requires every kernel to have been launched once per launch;
 3. rescores every transcript with affine gaps in numpy (exactly its
@@ -24,7 +27,22 @@ Phases, each of which exits non-zero on failure:
    tensors, exactly, and the transcripts to the C++ host walker's over
    the same plane;
 5. times each kernel and its plain twin with CUDA events at that
-   launch's shape, and the main path end to end.
+   launch's shape, and the main path end to end;
+6. runs the pairwise path, counting the row kernel's launches: the
+   100 kbp DNA pair (10% substitutions, short indels within +-50
+   diagonals, band (-250, 250)) as B_GLOBAL, B_LOCAL and B_OVERLAP, and
+   the protein pair under BLOSUM62 as B_LOCAL.  Each solve and
+   traceback must launch the row kernel, give the C++ ``native``
+   engine's score and the antidiagonal kernel's (``backend="pallas"``)
+   exactly, and return a transcript that rescores to it.  Then, on the
+   Aligner's own inputs with directions, the row kernel must equal its
+   plain twin exactly (score, end cell, the whole plane) for the protein
+   pair and for the DNA pair's first 10 kbp as B_LOCAL (W 512); and the
+   DNA pair's time is split into kernel, copy and host walk;
+7. holds the row kernel to its plain twin at the JAX package's
+   score-bench shape (4096 pairs of 10 kbp, band 100, local): score-only
+   on the whole batch, with directions on 512 pairs (scores, end cells,
+   the whole plane), exactly, and times both.
 
 Prints a kernels JSON line, then the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Fails (exit code
@@ -35,12 +53,18 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_BLOCKS = 2048
 BLOCK = 10_000
 BAND = 100
 NARROW = 12
 GO, GE = -3.0, -1.0
+PAIR_LEN = 100_000        # the pairwise path's DNA pair
+PAIR_BAND = (-250, 250)
+PROTEIN_LEN = 2000
+TWIN_PREFIX = 10_000      # rows of the DNA pair held to the row twin
+SCORE_BENCH = dict(B=4096, L=10240, n=10000, band=100, W=128)
 
 
 def fail(msg):
@@ -87,6 +111,27 @@ def plant(np, rng, alphabet, Sequence):
     return S, T, segments
 
 
+def mutate(np, rng, core, alphabet_size, sub_rate, n_indels, margin):
+    """``core`` with ``sub_rate`` substitutions and ``n_indels`` short
+    indels (1-5 letters), the diagonal drift kept within 40."""
+    mut = core.copy()
+    hit = rng.random(len(core)) < sub_rate
+    mut[hit] = (mut[hit] + rng.integers(1, alphabet_size, int(hit.sum()))
+                ) % alphabet_size
+    pieces, last, drift = [], 0, 0
+    for p in np.sort(rng.choice(np.arange(margin, len(core) - margin),
+                                n_indels, replace=False)):
+        n = int(rng.integers(1, 6))
+        pieces.append(mut[last:p])
+        if drift <= 0:                    # insertion into T
+            pieces.append(rng.integers(0, alphabet_size, n).astype(np.int8))
+            last, drift = p, drift + n
+        else:                             # deletion from T
+            last, drift = p + n, drift - n
+    pieces.append(mut[last:])
+    return np.concatenate(pieces)
+
+
 def rescore(np, ops, s, t, si, sj, subst):
     """Affine-gap score of an MSID transcript starting at (si, sj), and
     whether its M / S letters agree with the characters."""
@@ -131,9 +176,10 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a card")
     from biseqt_tpu_torch import _build, native
-    from biseqt_tpu_torch import pipeline
-    from biseqt_tpu_torch.ops import dp_ad, walk
-    from biseqt_tpu_torch.ops.banded_dp import ModeFlags
+    from biseqt_tpu_torch import pipeline, pw
+    from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
+    from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
+    from biseqt_tpu_torch.ops.banded_dp import ModeFlags, traceback_path
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
     dev = torch.device("cuda", 0)
@@ -147,14 +193,20 @@ def main():
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    for name, module in (("dp_ad", dp_ad), ("walk", walk)):
-        _build.load(name, module._declare)
+    kernels = (("dp_ad", dp_ad), ("walk", walk), ("dp_row", dp_row))
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        builds = [pool.submit(_build.load, name, module._declare)
+                  for name, module in kernels]
+        host_tier = pool.submit(native.available)
+        for future in builds:
+            future.result()
+        if not host_tier.result():
+            fail("the shared C++ tier (pwnative.cpp) did not build")
+    for name, _ in kernels:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print("ptxas %s: %s" % (name, line.strip()))
-    if not native.available():
-        fail("the shared C++ tier (pwnative.cpp) did not build")
-    print("build: %.1f s (both kernels and the C++ tier)"
+    print("build: %.1f s (three kernels and the C++ tier, in parallel)"
           % (time.perf_counter() - t0))
 
     # -- data -------------------------------------------------------------
@@ -284,6 +336,171 @@ def main():
           % (dp_ms, launch_cells / dp_ms / 1e6, dp_plain_ms))
     print("walk: kernel %.3f ms, plain %.0f ms" % (walk_ms, walk_plain_ms))
 
+    # -- 6. the pairwise path at real size, counted --------------------
+    pairs = []
+    core = rng.integers(0, 4, PAIR_LEN).astype(np.int8)
+    mut = mutate(np, rng, core, 4, 0.10, 40, 1000)
+    for alntype in pw.BANDED_TYPES:
+        pairs.append(("dna %s" % alntype, Sequence(A4, core),
+                      Sequence(A4, mut), alntype, PAIR_BAND, None, GO, GE))
+    prot = rng.integers(0, 20, PROTEIN_LEN).astype(np.int8)
+    pmut = mutate(np, rng, prot, 20, 0.15, 6, 100)
+    P = protein_alphabet()
+    pairs.append(("protein B_LOCAL", Sequence(P, prot), Sequence(P, pmut),
+                  pw.B_LOCAL, (-100, 100), BLOSUM62, -11.0, -1.0))
+    print("pairwise path: a %d bp DNA pair (|T| = %d), band %s; a %d-residue"
+          " protein pair (|T| = %d), BLOSUM62"
+          % (PAIR_LEN, len(mut), PAIR_BAND, PROTEIN_LEN, len(pmut)))
+
+    def align(S, T, alntype, band, subst, go, ge, backend, traceback):
+        with pw.Aligner(S, T, alnmode=pw.BANDED_MODE, alntype=alntype,
+                        diag_range=band, subst_scores=subst, go_score=go,
+                        ge_score=ge, backend=backend, device=dev) as aln:
+            t0 = time.perf_counter()
+            score = aln.solve()             # a host float: synchronised
+            t1 = time.perf_counter()
+            alignment = aln.traceback() if traceback else None
+            t2 = time.perf_counter()
+        return score, alignment, aln.subst_scores, t1 - t0, t2 - t1
+
+    # warm-up: the row kernel's first launch, on a small pair
+    align(Sequence(A4, core[:500]), Sequence(A4, mut[:500]), pw.B_LOCAL,
+          PAIR_BAND, None, GO, GE, "pallas_row", True)
+    dp_row.LAUNCHES = 0
+    row_out = [align(S, T, alntype, band, psub, go, ge, "pallas_row", True)
+               for _, S, T, alntype, band, psub, go, ge in pairs]
+    row_launches = dp_row.LAUNCHES
+    print("launches of the row kernel on the pairwise path: %d"
+          % row_launches)
+    if row_launches < 2 * len(pairs):
+        fail("the pairwise path did not go through the row kernel: %d"
+             " launches for %d solves and tracebacks"
+             % (row_launches, 2 * len(pairs)))
+    row_err = 0.0
+    for (name, S, T, alntype, band, psub, go, ge), got in zip(pairs,
+                                                              row_out):
+        score, alignment, subst_np, t_solve, t_tb = got
+        ref = align(S, T, alntype, band, psub, go, ge, "native", False)
+        ad = align(S, T, alntype, band, psub, go, ge, "pallas", False)
+        rescored = float(alignment.calculate_score(subst_np, go, ge))
+        print("%s: pallas_row %r (solve %.3f s, traceback %.3f s),"
+              " native %r (%.3f s), pallas %r (%.3f s), transcript"
+              " rescores to %r, %d ops from (%d, %d)"
+              % (name, score, t_solve, t_tb, ref[0], ref[3], ad[0], ad[3],
+                 rescored, len(alignment.transcript),
+                 alignment.origin_start, alignment.mutate_start))
+        if not (score == ref[0] == ad[0] == rescored):
+            fail("%s: the row kernel's score %r, native %r, pallas %r,"
+                 " rescored transcript %r" % (name, score, ref[0], ad[0],
+                                             rescored))
+        row_err = max(row_err, abs(score - ref[0]))
+        if alignment.transcript.origin_len < 0.9 * len(S) \
+                and alntype != pw.B_LOCAL:
+            fail("%s: the transcript covers too little of S" % name)
+
+    def row_call(S, T, alntype, band, subst, go, ge):
+        """The Aligner's own row-kernel call with directions, its inputs
+        on the card, and the band's top diagonal."""
+        with pw.Aligner(S, T, alnmode=pw.BANDED_MODE, alntype=alntype,
+                        diag_range=band, subst_scores=subst, go_score=go,
+                        ge_score=ge, backend="pallas_row", device=dev) as aln:
+            args, kw = aln._row_args(with_dirs=True)
+        on = [torch.as_tensor(np.asarray(a), device=dev) for a in args]
+        return on, kw, aln.diag_range[1]
+
+    # where the Aligner's time goes: the kernel score-only and with
+    # directions (CUDA events), the plane's copy to the host and the
+    # host walk (host clock)
+    for name, S, T, alntype, band, psub, go, ge in pairs[:-1]:
+        on, kw, dmax = row_call(S, T, alntype, band, psub, go, ge)
+        solve_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(
+            *on, **dict(kw, with_dirs=False)), 3)
+        dirs_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(*on, **kw), 3)
+        res = dp_row.banded_dp_row(*on, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane = res.dirs[0].cpu().numpy()
+        t1 = time.perf_counter()
+        traceback_path(plane, S.to_array(), T.to_array(), int(res.end_i[0]),
+                       int(res.end_j[0]), banded=True, dmax=dmax,
+                       flags=kw["flags"])
+        t2 = time.perf_counter()
+        print("%s: K4 score-only %.3f ms, with directions %.3f ms; plane"
+              " to the host %.1f ms (%.1f MB), host walk %.1f ms"
+              % (name, solve_ms, dirs_ms, (t1 - t0) * 1e3, plane.nbytes / 1e6,
+                 (t2 - t1) * 1e3))
+
+    # the row kernel against its twin on the Aligner's own inputs, with
+    # directions: the protein pair whole (the shared-memory table, A 20)
+    # and the DNA pair's first TWIN_PREFIX letters (W 512, 16 warps)
+    n = TWIN_PREFIX
+    twin_cases = [
+        pairs[-1],
+        ("dna B_LOCAL, first %d bp" % n, Sequence(A4, core[:n]),
+         Sequence(A4, mut[:n]), pw.B_LOCAL, PAIR_BAND, None, GO, GE),
+    ]
+    for name, S, T, alntype, band, psub, go, ge in twin_cases:
+        on, kw, _ = row_call(S, T, alntype, band, psub, go, ge)
+        got = dp_row.banded_dp_row(*on, **kw)
+        t0 = time.perf_counter()
+        want = dp_row.banded_dp_row_reference(*on, **kw)
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t0
+        row_err = max(row_err, float((got.score - want.score).abs().max()))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail("%s: the row kernel differs from its plain twin on the"
+                 " Aligner's inputs (W %d)" % (name, kw["W"]))
+        print("%s: dp_row kernel == plain twin on the Aligner's inputs, W"
+              " %d (score, end cell, the whole plane; twin %.1f s)"
+              % (name, kw["W"], t_twin))
+
+    # -- 7. the row kernel against its twin at the score-bench shape -----
+    sb = SCORE_BENCH
+    rr = np.random.default_rng(20261017)
+    B = sb["B"]
+    host = (rr.integers(0, 4, (B, sb["L"]), dtype=np.int8),
+            rr.integers(0, 4, (B, sb["L"]), dtype=np.int8),
+            np.full((B,), sb["n"], np.int32), np.full((B,), sb["n"], np.int32),
+            np.full((B,), -(sb["band"] // 2), np.int32))
+    on = [torch.from_numpy(v).to(dev) for v in host]
+    rkw = dict(W=sb["W"], subst=subst, go=-2.0, ge=-1.0,
+               flags=ModeFlags(local_start=True, local_end=True),
+               w_eff=torch.full((B,), sb["band"], dtype=torch.int32,
+                                device=dev), device=dev)
+    got = dp_row.banded_dp_row(*on, **rkw)
+    t_plain = time.perf_counter()
+    want = dp_row.banded_dp_row_reference(*on, **rkw)
+    torch.cuda.synchronize()
+    row_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    row_err = max(row_err, float((got.score - want.score).abs().max()))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("row kernel (score-only, %d pairs) differs from its plain twin"
+             % B)
+    nd = 512
+    dkw = dict(rkw, w_eff=rkw["w_eff"][:nd], with_dirs=True)
+    got_d = dp_row.banded_dp_row(*[v[:nd] for v in on], **dkw)
+    t_plain = time.perf_counter()
+    want_d = dp_row.banded_dp_row_reference(*[v[:nd] for v in on], **dkw)
+    torch.cuda.synchronize()
+    row_plain_dirs_ms = (time.perf_counter() - t_plain) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(got_d, want_d)):
+        fail("row kernel (directions, %d pairs) differs from its plain twin"
+             % nd)
+    if not torch.equal(got_d.score, got.score[:nd]):
+        fail("row kernel scores with and without directions differ")
+    print("dp_row kernel == plain twin: %d pairs score-only, %d pairs with"
+          " directions (scores, end cells, the whole plane)" % (B, nd))
+    row_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(*on, **rkw), 3)
+    row_dirs_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(
+        *[v[:nd] for v in on], **dkw), 3)
+    band_cells = B * sb["n"] * sb["band"]
+    print("dp_row: kernel %.3f ms (%.1f GCUPS on %d band cells), plain"
+          " %.0f ms; with directions on %d pairs: kernel %.3f ms (%.1f"
+          " GCUPS), plain %.0f ms"
+          % (row_ms, band_cells / row_ms / 1e6, band_cells, row_plain_ms, nd,
+             row_dirs_ms, band_cells * nd / B / row_dirs_ms / 1e6,
+             row_plain_dirs_ms))
+
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
@@ -295,6 +512,11 @@ def main():
          "replaces": "biseqt_tpu/ops/pallas_walk.py:512",
          "launches": counts["walk"], "max_abs_err": walk_err,
          "ms": walk_ms, "plain_ms": walk_plain_ms},
+        {"name": "dp_row", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/dp_row.cu",
+         "replaces": "biseqt_tpu/ops/pallas_dp.py:54",
+         "launches": row_launches, "max_abs_err": row_err,
+         "ms": row_ms, "plain_ms": row_plain_ms},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

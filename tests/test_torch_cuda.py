@@ -9,14 +9,17 @@ so it also runs on a machine that has only PyTorch:
 Tolerance is exact: the kernels run the plain twins' arithmetic step for
 step, so scores, end cells, dirs planes, trace bytes and transcripts
 must be equal.  The batch helpers are shared with the CPU parity tests
-(tests/test_torch_dp_ad.py, tests/test_torch_walk.py).
+(tests/test_torch_dp_ad.py, tests/test_torch_walk.py,
+tests/test_torch_dp_row.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch.ops import dp_ad, walk
+from biseqt_tpu_torch import pw
+from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
+from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
 from biseqt_tpu_torch.pipeline import extend_segments
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
@@ -44,6 +47,35 @@ def mk_batch(rng):
     t_lens = np.array([148, 150, 135, 150, 150], np.int32)
     dmin = np.array([-64, -63, -30, -80, -64], np.int32)
     w_eff = np.array([100, 127, 64, 120, 127], np.int32)
+    return (ss, ts, s_lens, t_lens, dmin), w_eff
+
+
+# the flag sets of tests/test_pallas_dp.py
+ROW_FLAGS = [
+    dict(),
+    dict(local_start=True, local_end=True),
+    dict(free_start_edges=True, free_end_edges=True),
+    dict(local_end=True),
+    dict(local_start=True),
+]
+
+
+def mk_row_batch(rng, A=4, W=128, L=300):
+    """Ragged homologous pairs (15% substitutions, T shifted by up to
+    three letters) with per-pair bands around the main diagonal and
+    effective widths below W."""
+    B = 5
+    ss = rng.integers(0, A, (B, L)).astype(np.int8)
+    ts = ss.copy()
+    m = rng.random((B, L)) < 0.15
+    ts[m] = (ts[m] + 1 + rng.integers(0, A - 1, m.sum())) % A
+    for b in range(B):
+        ts[b] = np.roll(ts[b], b % 4)
+    s_lens = np.array([L, L - 17, L, L - 60, 1], np.int32)
+    t_lens = np.array([L, L, L - 23, L - 55, L], np.int32)
+    w_eff = np.array([W, W - 28, W // 2 + 3, W - 1, W], np.int32)
+    dmin = (np.array([-(W // 2), -(W // 2) - 9, -40, -(W // 2) + 5, -W + 2])
+            .astype(np.int32))
     return (ss, ts, s_lens, t_lens, dmin), w_eff
 
 
@@ -142,6 +174,98 @@ def test_extend_segments_card_matches_cpu(rng, card):
                for seg in got)
 
 
+@pytest.mark.parametrize("W", [128, 256, 1280, 2560, 4096])
+@pytest.mark.parametrize("A", [4, 20])
+@pytest.mark.parametrize("flags", ROW_FLAGS)
+def test_dp_row_kernel_matches_plain(rng, card, flags, A, W):
+    """K4 against its twin, score-only and with directions: every flag
+    set, a 4- and a 20-letter alphabet, one, two and four lanes per
+    thread (4 to 32 warps)."""
+    args, w_eff = mk_row_batch(rng, A=A, W=W)
+    args = [torch.as_tensor(x, device=card) for x in args]
+    if A == 4:
+        subst, go, ge = UNIT, -2.5, -1.0
+    else:
+        subst, go, ge = BLOSUM62, -11.0, -0.5
+    kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
+              w_eff=torch.as_tensor(w_eff, device=card), device=card)
+    for with_dirs in (False, True):
+        n0 = dp_row.LAUNCHES
+        got = dp_row.banded_dp_row(*args, with_dirs=with_dirs, **kw)
+        assert dp_row.LAUNCHES == n0 + 1
+        want = dp_row.banded_dp_row_reference(*args, with_dirs=with_dirs,
+                                              **kw)
+        assert dp_row.LAUNCHES == n0 + 1
+        _assert_results_equal(got, want)
+    assert float(got.score.max()) > 100
+
+
+def test_dp_row_kernel_ragged_and_negative_dmax(rng, card):
+    """A band entirely left of the main diagonal (dmax < 0) over a T
+    much longer than S, beside ragged pairs, and a general 4 x 4 matrix
+    with fractional gap scores."""
+    B, LS, LT, W = 3, 120, 640, 128
+    ss = rng.integers(0, 4, (B, LS)).astype(np.int8)
+    ts = rng.integers(0, 4, (B, LT)).astype(np.int8)
+    ts[:, 300:300 + LS] = ss
+    s_lens = np.array([LS, 97, LS], np.int32)
+    t_lens = np.array([LT, LT, 500], np.int32)
+    dmin = np.array([-420, -420, -360], np.int32)
+    w_eff = np.array([W - 1, W, 90], np.int32)
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    general = np.array(
+        [[2, -1, -2, -1], [-1, 2, -1, -2], [-2, -1, 2, -1], [-1, -2, -1, 2]],
+        np.float32)
+    for flags in ROW_FLAGS:
+        for subst, go, ge in ((UNIT, -2.0, -1.0), (general, -3.0, -0.5)):
+            kw = dict(W=W, subst=subst, go=go, ge=ge,
+                      flags=ModeFlags(**flags), with_dirs=True,
+                      w_eff=torch.as_tensor(w_eff, device=card), device=card)
+            got = dp_row.banded_dp_row(*args, **kw)
+            _assert_results_equal(got, dp_row.banded_dp_row_reference(*args,
+                                                                      **kw))
+        if flags.get("local_start") and flags.get("local_end"):
+            assert float(got.score[0]) > 100    # the planted diagonal
+
+
+def test_aligner_pallas_row_card_matches_cpu(rng, card):
+    """Aligner(backend="pallas_row") on the card equals the same call on
+    the CPU (the plain twin): scores, transcripts and start cells, for
+    DNA and for a 20-letter protein pair under BLOSUM62."""
+    cases = []
+    A4 = Alphabet("ACGT")
+    core = rng.integers(0, 4, 400)
+    mut = core.copy()
+    hit = rng.random(400) < 0.1
+    mut[hit] = (mut[hit] + 1) % 4
+    mut = np.concatenate([mut[:150], mut[153:], rng.integers(0, 4, 5)])
+    cases.append((Sequence(A4, core), Sequence(A4, mut), None, -3.0, -1.0))
+    P = protein_alphabet()
+    prot = rng.integers(0, 20, 300)
+    pmut = prot.copy()
+    hit = rng.random(300) < 0.15
+    pmut[hit] = rng.integers(0, 20, hit.sum())
+    cases.append((Sequence(P, prot), Sequence(P, pmut), BLOSUM62, -11.0,
+                  -1.0))
+    for S, T, subst, go, ge in cases:
+        for alntype in pw.BANDED_TYPES:
+            kw = dict(alnmode=pw.BANDED_MODE, alntype=alntype,
+                      diag_range=(-20, 20), subst_scores=subst,
+                      go_score=go, ge_score=ge, backend="pallas_row")
+            n0 = dp_row.LAUNCHES
+            with pw.Aligner(S, T, device=card, **kw) as aln:
+                got = (aln.solve(), aln.traceback())
+            assert dp_row.LAUNCHES == n0 + 2
+            with pw.Aligner(S, T, device="cpu", **kw) as aln:
+                want = (aln.solve(), aln.traceback())
+            assert got[0] == want[0] and got[0] > 100
+            assert str(got[1].transcript) == str(want[1].transcript)
+            assert (got[1].origin_start, got[1].mutate_start) == \
+                (want[1].origin_start, want[1].mutate_start)
+            assert got[1].calculate_score(aln.subst_scores, go, ge) == got[0]
+
+
 def test_kernel_wrappers_refuse_bad_launches(card):
     """Shapes the kernels do not take raise before any launch."""
     x = torch.zeros((2, 8), dtype=torch.int8, device=card)
@@ -156,3 +280,9 @@ def test_kernel_wrappers_refuse_bad_launches(card):
         walk.traceback_walk(torch.zeros((4, 1, 128), device=card), lens,
                             lens, lens, W=128, device=card)
     assert dp_ad.LAUNCHES == n0
+    n0 = dp_row.LAUNCHES
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=200, **kw)
+    with pytest.raises(ValueError, match="A = 20"):
+        dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=128, A=20, **kw)
+    assert dp_row.LAUNCHES == n0

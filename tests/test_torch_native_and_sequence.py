@@ -174,8 +174,9 @@ for name in list(sys.modules):
 sys.meta_path.insert(0, Refuse())
 import chip_smoke
 import biseqt_tpu_torch
-from biseqt_tpu_torch import _build, native, pipeline, profiling, sequence
-from biseqt_tpu_torch.ops import banded_dp, dp_ad, walk
+from biseqt_tpu_torch import (_build, matrices, native, pipeline, profiling,
+                              pw, sequence)
+from biseqt_tpu_torch.ops import banded_dp, dp_ad, dp_row, walk
 assert native.available()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "biseqt_tpu")]
 assert not bad, bad
