@@ -1,10 +1,10 @@
-"""ctypes binding to the shared C++ host tier (``pwnative.cpp``).
+"""ctypes binding to the port's C++ host tier (``pwnative.cpp``).
 
-The port compiles the JAX package's C++ source
-``biseqt_tpu/native/pwnative.cpp`` by path, with the flags of its
-``Makefile``, into this package's git-ignored ``build/`` directory the
-first time it is needed; the source is shared, never forked, and
-nothing is written into ``biseqt_tpu/``.  Bound: :func:`align` and
+The port keeps its own copy of the JAX package's C++ host tier,
+``csrc/pwnative.cpp`` (byte for byte the same source; a test guards
+against drift), and compiles it with the flags of the JAX package's
+``native/Makefile`` into this package's git-ignored ``build/``
+directory the first time it is needed.  Bound: :func:`align` and
 :func:`traceback` (the host DP engine behind ``pw.Aligner(backend=
 "native")``), :func:`traceback_batch_ad` (the host walker over an
 antidiagonal dirs plane) and :func:`compact_sweep_ops_t` (op traces ->
@@ -33,11 +33,10 @@ MODE_FREE_END_EDGES = 4
 MODE_LOCAL_END = 8
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_PKG), "biseqt_tpu", "native",
-                      "pwnative.cpp")
+SOURCE = os.path.join(_PKG, "csrc", "pwnative.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 _SO = os.path.join(BUILD_DIR, "libpwnative.so")
-# the flags of biseqt_tpu/native/Makefile
+# the flags of the JAX package's native/Makefile
 _CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-Wall",
              "-std=c++17"]
 
@@ -50,7 +49,7 @@ _lib = None
 
 
 def _build():
-    """Compile the shared source into ``build/libpwnative.so``.  The
+    """Compile the source into ``build/libpwnative.so``.  The
     library is written under a temporary name and renamed into place,
     so concurrent test workers never load a half-written file."""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -59,12 +59,19 @@ class DPResult(NamedTuple):
 def resolve_device(device) -> torch.device:
     """``device`` as a :class:`torch.device`, with the index of the
     current CUDA device filled in for a bare ``"cuda"``.  Only the CPU
-    and CUDA are supported."""
+    and CUDA are supported.  Asked for CUDA where no card is present it
+    raises: the port never falls back to the CPU."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     if device.type not in ("cpu", "cuda"):
         raise ValueError("unsupported device %s" % device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device %r asks for a CUDA card and none is present; pass "
+                "device=\"cpu\" to run the plain PyTorch versions"
+                % str(device))
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -191,8 +198,8 @@ class _Sweep:
 
     def __init__(self, s_codes, t_codes, s_lens, t_lens, subst, go, ge,
                  flags, device, *, banded, W=None, dmin=None, w_eff=None):
-        _check_gap_scores(go, ge)
         dev = self.device = resolve_device(device)
+        _check_gap_scores(go, ge)
         s = on_device(s_codes, torch.int32, dev)
         t = on_device(t_codes, torch.int32, dev)
         B, LS = s.shape
@@ -355,7 +362,7 @@ def _solve(sw: _Sweep, with_dirs: bool) -> DPResult:
 
 def banded_dp(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
               go, ge, flags: ModeFlags, with_dirs: bool = False,
-              w_eff=None, device="cpu") -> DPResult:
+              w_eff=None, device="cuda") -> DPResult:
     """Batched banded affine-gap DP (the reference engine).
 
     Args (numpy arrays, or tensors already on ``device``):
@@ -379,7 +386,7 @@ def banded_dp(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
 
 def full_dp(s_codes, t_codes, s_lens, t_lens, *, subst, go, ge,
             flags: ModeFlags, with_dirs: bool = False,
-            device="cpu") -> DPResult:
+            device="cuda") -> DPResult:
     """Batched full-matrix affine-gap DP (lane k = column j, width
     LT + 1); the contract of :func:`banded_dp` otherwise."""
     sw = _Sweep(s_codes, t_codes, s_lens, t_lens, subst, go, ge, flags,
@@ -393,7 +400,7 @@ def full_dp(s_codes, t_codes, s_lens, t_lens, *, subst, go, ge,
 
 def full_dp_traceback(s_codes, t_codes, s_lens, t_lens, *, subst, go, ge,
                       flags: ModeFlags, end_i, end_j,
-                      block_rows: int = 512, device="cpu"):
+                      block_rows: int = 512, device="cuda"):
     """Transcripts for full-matrix alignments in O(block_rows * LT)
     direction memory instead of O(LS * LT).
 

@@ -426,7 +426,7 @@ def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
 def banded_dp_ad(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
                  go: float, ge: float, flags: ModeFlags, w_eff=None,
                  with_dirs: bool = False, r_chunk: int = 128,
-                 device="cpu") -> DPResult:
+                 device="cuda") -> DPResult:
     """Antidiagonal dual-pair banded DP over a batch of pairs.
 
     Inputs (numpy arrays, or tensors already on ``device``):
@@ -455,7 +455,7 @@ def banded_dp_ad_reference(s_codes, t_codes, s_lens, t_lens, dmin, *,
                            W: int, subst, go: float, ge: float,
                            flags: ModeFlags, w_eff=None,
                            with_dirs: bool = False, r_chunk: int = 128,
-                           device="cpu") -> DPResult:
+                           device="cuda") -> DPResult:
     """The plain PyTorch twin of :func:`banded_dp_ad` on any device
     (vectorised over pairs and lanes, a Python loop over antidiagonals):
     same arguments, same outputs, bit for bit."""

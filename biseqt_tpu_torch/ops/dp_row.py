@@ -307,7 +307,7 @@ def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
 def banded_dp_row(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
                   go: float, ge: float, flags: ModeFlags, w_eff=None,
                   A: int = None, with_dirs: bool = False,
-                  device="cpu") -> DPResult:
+                  device="cuda") -> DPResult:
     """Row-form banded DP over a batch of pairs.
 
     Inputs (numpy arrays, or tensors already on ``device``):
@@ -332,7 +332,7 @@ def banded_dp_row_reference(s_codes, t_codes, s_lens, t_lens, dmin, *,
                             W: int, subst, go: float, ge: float,
                             flags: ModeFlags, w_eff=None, A: int = None,
                             with_dirs: bool = False,
-                            device="cpu") -> DPResult:
+                            device="cuda") -> DPResult:
     """The plain PyTorch twin of :func:`banded_dp_row` on any device
     (vectorised over pairs and lanes, a Python loop over rows): same
     arguments, same outputs, bit for bit."""

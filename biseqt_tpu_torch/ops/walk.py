@@ -154,7 +154,7 @@ def _run(engine, dirs, dminq, end_i, end_j, W, device):
     return trace, fi[:B], fj[:B]
 
 
-def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cpu"):
+def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda"):
     """Walk every pair's traceback over the dirs plane.
 
     ``dirs``: [Rp, B2, W] uint8 tensor on ``device`` (the plane of
@@ -174,7 +174,7 @@ def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cpu"):
 
 
 def traceback_walk_reference(dirs, dminq, end_i, end_j, *, W: int,
-                             device="cpu"):
+                             device="cuda"):
     """The plain PyTorch twin of :func:`traceback_walk` on any device
     (all walkers in lockstep, a Python loop over antidiagonals): same
     arguments, same outputs, byte for byte."""

@@ -7,7 +7,7 @@ sequences, segments are grouped by bucketed cutout shape, and each
 group is extended in launches of the antidiagonal DP kernel
 (:mod:`.ops.dp_ad`).  With transcripts, each launch writes the
 direction plane, the walk kernel (:mod:`.ops.walk`) turns it into a
-2-bit op trace on the device, and the shared C++ tier compacts the
+2-bit op trace on the device, and the C++ host tier compacts the
 trace into MSID transcripts (:func:`.native.compact_sweep_ops_t`).
 
 Launch geometry (window split, cuts, shape buckets, per-launch caps,
@@ -152,7 +152,7 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
 def extend_segments(S, T, segments: List[Dict], *, subst=None,
                     go_score=-3.0, ge_score=-1.0,
                     pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
-                    with_transcripts: bool = False, device="cpu",
+                    with_transcripts: bool = False, device="cuda",
                     _dirs_budget: int = 512 << 20, _r_chunk: int = 128):
     """Batched banded extension of candidate segments.
 
@@ -169,12 +169,13 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     output may hold more rows than ``segments``: join on
     ``source_index``.
 
-    ``device="cuda"`` runs the hand-written kernels; ``device="cpu"``
-    runs their plain PyTorch twins.
+    ``device="cuda"`` (the default) runs the hand-written kernels and
+    raises without a card; ``device="cpu"`` runs their plain PyTorch
+    twins.
     """
+    device = resolve_device(device)
     if not segments:
         return []
-    device = resolve_device(device)
     A = len(S.alphabet)
     if subst is None:
         subst = np.where(np.eye(A, dtype=bool), 1.0, -1.0).astype(np.float32)
@@ -189,7 +190,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
             raise RuntimeError(
                 "extend_segments(with_transcripts=True) compacts op "
                 "traces with the native C++ tier, which is unavailable "
-                "(building biseqt_tpu/native/pwnative.cpp failed — is a "
+                "(building biseqt_tpu_torch/csrc/pwnative.cpp failed — is a "
                 "C++ toolchain installed?); run score-only "
                 "(with_transcripts=False)")
         segments, src_idx = _split_windows(segments, pad_radius, pad_a,

@@ -16,7 +16,9 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["Phase", "counters", "report", "gcups", "materialize"]
+__all__ = ["Phase", "counters", "report", "gcups", "cuda_ms", "bound_ms",
+           "materialize", "HBM_BYTES_PER_S", "FP32_OPS_PER_S",
+           "INT32_OPS_PER_S"]
 
 _REGISTRY = defaultdict(lambda: {"calls": 0, "seconds": 0.0, "cells": 0})
 
@@ -75,6 +77,61 @@ def materialize(x):
 
 def gcups(cells: int, seconds: float) -> float:
     return cells / max(seconds, 1e-12) / 1e9
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet and Hopper white paper): 3.35 TB/s of HBM3; 67 TFLOP/s of
+# float32 outside the tensor cores, an FMA counted as two, i.e. 33.5 T
+# float instructions a second (132 SMs x 128 FP32 lanes x 1.98 GHz);
+# 64 INT32 lanes per SM, so half that for 32-bit integer instructions.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 16.75e12
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    """The least time the card could take for work that moves ``nbytes``
+    to or from device memory and does ``ops`` operations at
+    ``ops_per_s``: ``(ms, "bytes" or "operations")``, whichever bound
+    is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+L2_BYTES = 50 << 20
+
+
+def cuda_ms(fn, reps: int, cold: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` on the current CUDA device over
+    ``reps`` runs, by CUDA events, after one warm-up run.  ``cold``
+    writes twice the L2 cache's size before each run, outside the timed
+    span, so that each run finds its inputs in device memory."""
+    fn()
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    scrub = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    spans = []
+    for _ in range(reps):
+        scrub.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
 def counters() -> dict:

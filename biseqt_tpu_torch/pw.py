@@ -7,7 +7,7 @@ engines:
 
 * ``"lax"``: the row-wavefront reference engine
   (:mod:`.ops.banded_dp`), plain PyTorch on ``device``, both modes;
-* ``"native"``: the shared C++ host engine (:func:`.native.align`);
+* ``"native"``: the C++ host engine (:func:`.native.align`);
 * ``"pallas"``: the antidiagonal DP kernel (:mod:`.ops.dp_ad`), walked
   by the C++ host walker (:func:`.native.traceback_batch_ad`); banded
   modes only;
@@ -15,11 +15,12 @@ engines:
   :func:`.ops.banded_dp.traceback_path`; banded modes only.
 
 The names of the last two are the JAX package's.  On ``device="cuda"``
-they launch the port's CUDA kernels; on ``device="cpu"`` their plain
-PyTorch twins.  Sequences go to the engines at their own lengths (the
-JAX package pads them to shape buckets to limit jit recompiles; PyTorch
-does not compile per shape), and the band width is rounded up only
-where a kernel needs it, with the requested width in ``w_eff``.
+(the default, which raises without a card) they launch the port's CUDA
+kernels; on ``device="cpu"`` their plain PyTorch twins.  Sequences go
+to the engines at their own lengths (the JAX package pads them to shape
+buckets to limit jit recompiles; PyTorch does not compile per shape),
+and the band width is rounded up only where a kernel needs it, with the
+requested width in ``w_eff``.
 
 Alignment modes (pwlib's ``alnmode`` / alntype enums):
     STD_MODE with GLOBAL, LOCAL, OVERLAP, START_ANCHORED, END_ANCHORED,
@@ -209,7 +210,7 @@ class Aligner:
     def __init__(self, origin, mutate, alnmode=STD_MODE, alntype=None,
                  subst_scores=None, match_score=1.0, mismatch_score=-1.0,
                  go_score=0.0, ge_score=-1.0, diag_range=None,
-                 backend="lax", device="cpu"):
+                 backend="lax", device="cuda"):
         assert isinstance(origin, Sequence) and isinstance(mutate, Sequence)
         assert origin.alphabet == mutate.alphabet
         self.origin = origin
@@ -393,7 +394,7 @@ class Aligner:
             if not native.available():
                 raise RuntimeError(
                     "Aligner(backend='pallas').traceback() walks the dirs "
-                    "plane with the shared C++ tier, which did not build; "
+                    "plane with the C++ tier, which did not build; "
                     "use backend='lax' or 'pallas_row'")
             dminq = parity_adjusted_dmin(np.asarray([self._ad_dmin], np.int32),
                                          np.asarray([0], np.int32))

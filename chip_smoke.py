@@ -11,11 +11,13 @@ substitutions plus short indels that stay within +-50 diagonals, band
 segment dict per block, then one narrow launch of 12 segments.  The
 pairwise path, ``pw.Aligner(..., backend="pallas_row", device="cuda")``,
 aligns a planted 100 kbp DNA pair and a 2,000-residue protein pair.
+The experiment probes (``biseqt_tpu_torch.experiments``) run at the
+JAX package's probe shapes.
 
 Phases, each of which exits non-zero on failure:
 
-1. builds the three CUDA kernels (``csrc/*.cu``, nvcc, sm_90a, one
-   process each, all at once) and the shared C++ host tier from the
+1. builds the five CUDA kernels (``csrc/*.cu``, nvcc, sm_90a, one
+   process each, all at once) and the C++ host tier from the
    checkout;
 2. runs the main path with the kernels' launch counters set to 0, and
    requires every kernel to have been launched once per launch;
@@ -42,11 +44,22 @@ Phases, each of which exits non-zero on failure:
 7. holds the row kernel to its plain twin at the JAX package's
    score-bench shape (4096 pairs of 10 kbp, band 100, local): score-only
    on the whole batch, with directions on 512 pairs (scores, end cells,
-   the whole plane), exactly, and times both.
+   the whole plane), exactly, and times both;
+8. runs the two probes' entry points with their launch counters set to
+   0: the transpose probe (PyTorch's transpose of the u8 plane
+   [1288, 512, 128], the same through int32, the kernel on the
+   [256, 128, 128] sub-plane and on the whole plane) and the int16
+   probe (all ten ops at [256, 128] on the probe's input and at
+   [65536, 128]), every kernel result equal to its plain version; then
+   holds the transpose kernel to its plain version on phase 4's dirs
+   plane, exactly, and times both.
 
-Prints a kernels JSON line, then the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.  Fails (exit code
-not 0, no result) without a CUDA card or outside the repository.
+Prints a kernels JSON line (per kernel: launches on its path, kernel,
+plain and library milliseconds, and the bound: the least time the card
+could take for the same work, from this run's bytes and operations),
+then the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  Fails (exit code not 0, no result)
+without a CUDA card or outside the repository.
 """
 
 import json
@@ -65,6 +78,24 @@ PAIR_BAND = (-250, 250)
 PROTEIN_LEN = 2000
 TWIN_PREFIX = 10_000      # rows of the DNA pair held to the row twin
 SCORE_BENCH = dict(B=4096, L=10240, n=10000, band=100, W=128)
+I16_ROWS = 65536          # the int16 probe's ops where bytes bound them
+
+# Operations per unit of work, counted from each kernel's source at the
+# smoke's settings, for the compute side of its bound.
+# dp_ad.cu:144-208, local mode with directions: per band cell 6 float
+# adds (H + go, the E and F reads with their wrap, diag, the lane mask,
+# the tracker drift), 6 maxes (E, F, H twice, the local floor, the
+# tracker) and 7 compares (two gap flags, two source tests, the local
+# stop's two, the tracker).
+DP_AD_OPS_PER_CELL = 19
+# dp_row.cu:199-282, score-only, local: per band cell 5 float adds
+# (diag, H + go, F + ge, the scan term, E) and 7 maxes (F, H before E,
+# the local floor, the running max, P, H, the tracker).  The shuffles
+# of the block scan are not counted: a bound of the recurrence alone.
+DP_ROW_OPS_PER_CELL = 12
+# walk.cu:55-86: ~50 integer instructions per action (bounds and parity
+# tests, the nibble's address and shift, the fused step, the trace bit).
+WALK_OPS_PER_STEP = 50
 
 
 def fail(msg):
@@ -154,19 +185,10 @@ def rescore(np, ops, s, t, si, sj, subst):
     return float(score), letters_ok
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def nbytes(*tensors):
+    """Bytes of the given tensors and numpy arrays together."""
+    return sum(x.numel() * x.element_size() if hasattr(x, "element_size")
+               else x.nbytes for x in tensors)
 
 
 def main():
@@ -177,9 +199,12 @@ def main():
         fail("torch.cuda.is_available() is false: this run needs a card")
     from biseqt_tpu_torch import _build, native
     from biseqt_tpu_torch import pipeline, pw
+    from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
     from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
     from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags, traceback_path
+    from biseqt_tpu_torch.profiling import (FP32_OPS_PER_S, INT32_OPS_PER_S,
+                                            bound_ms, cuda_ms)
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
     dev = torch.device("cuda", 0)
@@ -193,7 +218,8 @@ def main():
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    kernels = (("dp_ad", dp_ad), ("walk", walk), ("dp_row", dp_row))
+    kernels = (("dp_ad", dp_ad), ("walk", walk), ("dp_row", dp_row),
+               ("transpose_probe", transpose_probe), ("i16_probe", i16_probe))
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         builds = [pool.submit(_build.load, name, module._declare)
                   for name, module in kernels]
@@ -201,13 +227,13 @@ def main():
         for future in builds:
             future.result()
         if not host_tier.result():
-            fail("the shared C++ tier (pwnative.cpp) did not build")
+            fail("the C++ host tier (pwnative.cpp) did not build")
     for name, _ in kernels:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print("ptxas %s: %s" % (name, line.strip()))
-    print("build: %.1f s (three kernels and the C++ tier, in parallel)"
-          % (time.perf_counter() - t0))
+    print("build: %.1f s (%d kernels and the C++ tier, in parallel)"
+          % (time.perf_counter() - t0, len(kernels)))
 
     # -- data -------------------------------------------------------------
     rng = np.random.default_rng(20261016)
@@ -294,6 +320,7 @@ def main():
              " nibbles" % int(bad))
     print("dp_ad kernel == plain twin: scores, end cells, dirs plane on"
           " its live slots")
+    dirs4 = got.dirs          # phase 8 transposes this plane
 
     n = len(idxs)
     real = torch.arange(len(x["dmin"]), device=dev) < n
@@ -327,14 +354,32 @@ def main():
     print("transcripts == C++ host walker's on the full launch (%d pairs)"
           % n)
 
-    # -- 5. kernel times at the launch's shape ----------------------------
-    dp_ms = cuda_ms(torch, lambda: dp_ad.banded_dp_ad(*args, **dkw), 3)
-    walk_ms = cuda_ms(torch, lambda: walk.traceback_walk(
+    # -- 5. kernel times at the launch's shape, beside their bounds -------
+    dp_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*args, **dkw), 3)
+    walk_ms = cuda_ms(lambda: walk.traceback_walk(
         got.dirs, on["dminq"], ei, ej, W=W, device=dev), 3)
     launch_cells = sum(out[k]["band_cells"] for k in idxs)
-    print("dp_ad: kernel %.3f ms (%.1f GCUPS on band cells), plain %.0f ms"
-          % (dp_ms, launch_cells / dp_ms / 1e6, dp_plain_ms))
-    print("walk: kernel %.3f ms, plain %.0f ms" % (walk_ms, walk_plain_ms))
+    # K1 reads the codes, lengths, band and table once and writes the
+    # scores, end cells and the plane once
+    dp_work = (nbytes(*args, on["w_eff"], subst, *got),
+               DP_AD_OPS_PER_CELL * launch_cells)
+    dp_bound, dp_bound_by = bound_ms(*dp_work, FP32_OPS_PER_S)
+    # the walk reads one plane byte per action (each op, and the stop of
+    # each live walker) and writes the trace and cursors once
+    tr32 = w_got[0].to(torch.int32)
+    steps = int(sum((((tr32 >> s) & 3) != 0).sum() for s in (0, 2, 4, 6)))
+    reads = steps + int((ei >= 0).sum())
+    walk_work = (reads + nbytes(on["dminq"], ei, ej, *w_got),
+                 WALK_OPS_PER_STEP * reads)
+    walk_bound, walk_bound_by = bound_ms(*walk_work, INT32_OPS_PER_S)
+    print("dp_ad: kernel %.3f ms (%.1f GCUPS on %d band cells), plain %.0f"
+          " ms; bound %.4f ms (%s; %.1f MB, %.2f G operations)"
+          % (dp_ms, launch_cells / dp_ms / 1e6, launch_cells, dp_plain_ms,
+             dp_bound, dp_bound_by, dp_work[0] / 1e6, dp_work[1] / 1e9))
+    print("walk: kernel %.3f ms (%d actions), plain %.0f ms; bound %.4f ms"
+          " (%s; %.1f MB, %.2f G operations)"
+          % (walk_ms, reads, walk_plain_ms, walk_bound, walk_bound_by,
+             walk_work[0] / 1e6, walk_work[1] / 1e9))
 
     # -- 6. the pairwise path at real size, counted --------------------
     pairs = []
@@ -413,9 +458,9 @@ def main():
     # host walk (host clock)
     for name, S, T, alntype, band, psub, go, ge in pairs[:-1]:
         on, kw, dmax = row_call(S, T, alntype, band, psub, go, ge)
-        solve_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(
+        solve_ms = cuda_ms(lambda: dp_row.banded_dp_row(
             *on, **dict(kw, with_dirs=False)), 3)
-        dirs_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(*on, **kw), 3)
+        dirs_ms = cuda_ms(lambda: dp_row.banded_dp_row(*on, **kw), 3)
         res = dp_row.banded_dp_row(*on, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -490,8 +535,8 @@ def main():
         fail("row kernel scores with and without directions differ")
     print("dp_row kernel == plain twin: %d pairs score-only, %d pairs with"
           " directions (scores, end cells, the whole plane)" % (B, nd))
-    row_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(*on, **rkw), 3)
-    row_dirs_ms = cuda_ms(torch, lambda: dp_row.banded_dp_row(
+    row_ms = cuda_ms(lambda: dp_row.banded_dp_row(*on, **rkw), 3)
+    row_dirs_ms = cuda_ms(lambda: dp_row.banded_dp_row(
         *[v[:nd] for v in on], **dkw), 3)
     band_cells = B * sb["n"] * sb["band"]
     print("dp_row: kernel %.3f ms (%.1f GCUPS on %d band cells), plain"
@@ -500,23 +545,102 @@ def main():
           % (row_ms, band_cells / row_ms / 1e6, band_cells, row_plain_ms, nd,
              row_dirs_ms, band_cells * nd / B / row_dirs_ms / 1e6,
              row_plain_dirs_ms))
+    # K4 score-only reads the codes, lengths, band and table once and
+    # writes the scores and end cells once
+    row_work = (nbytes(*on, rkw["w_eff"], subst, *got),
+                DP_ROW_OPS_PER_CELL * band_cells)
+    row_bound, row_bound_by = bound_ms(*row_work, FP32_OPS_PER_S)
+    print("dp_row: bound %.4f ms (%s; %.1f MB, %.2f G operations)"
+          % (row_bound, row_bound_by, row_work[0] / 1e6, row_work[1] / 1e9))
+
+    # -- 8. the experiment probes, counted -------------------------------
+    transpose_probe.LAUNCHES = 0
+    i16_probe.LAUNCHES = 0
+    tr_legs = transpose_probe.run()
+    i16_rows = i16_probe.run(rows=(256, I16_ROWS))
+    probe_counts = {"transpose_probe": transpose_probe.LAUNCHES,
+                    "i16_probe": i16_probe.LAUNCHES}
+    print("launches of the probes' kernels: %s" % probe_counts)
+    if not all(probe_counts.values()):
+        fail("a probe did not go through its kernel: %s" % probe_counts)
+    for leg in tr_legs:
+        print("transpose probe: %s %s: ok=%s %.4f ms (%.1f GB/s eff; bound"
+              " %.4f ms)" % (leg["leg"], leg["shape"], leg["ok"], leg["ms"],
+                             leg["gbps"], leg["bound_ms"]))
+    if not all(leg["ok"] for leg in tr_legs):
+        fail("a transpose leg differs from the plain version")
+    for row in i16_rows:
+        if not row["ok"]:
+            fail("i16 op %r at %d rows: %s" % (row["op"], row["rows"],
+                                               row["error"]))
+        print("i16 probe: OK %s [%d, 128]: kernel %.4f ms, plain %.4f ms,"
+              " bound %.4f ms" % (row["op"], row["rows"], row["ms"],
+                                  row["plain_ms"], row["bound_ms"]))
+    # the probe's kernel leg and library leg on the whole probe plane
+    tr_kernel, tr_library = (
+        next(leg for leg in tr_legs if leg["leg"] == name
+             and leg["shape"] == list(transpose_probe.PLANE))
+        for name in ("kernel_transpose_u8", "library_transpose_u8"))
+    big = [row for row in i16_rows if row["rows"] == I16_ROWS]
+    i16_err = max(row["max_abs_err"] for row in i16_rows)
+
+    # the transpose on phase 4's dirs plane, the walk redesign's input
+    t_got = transpose_probe.transpose_minor(dirs4, device=dev)
+    t_want = transpose_probe.transpose_minor_reference(dirs4, device=dev)
+    tr_err = float((torch.maximum(t_got, t_want)
+                    - torch.minimum(t_got, t_want)).max())
+    if not torch.equal(t_got, t_want):
+        fail("transpose kernel differs from the plain version on the dirs"
+             " plane %s" % (tuple(dirs4.shape),))
+    del t_got, t_want
+    plane_ms = cuda_ms(lambda: transpose_probe.transpose_minor(
+        dirs4, device=dev), 5)
+    plane_library_ms = cuda_ms(
+        lambda: transpose_probe.transpose_minor_reference(dirs4, device=dev),
+        5)
+    print("transpose of phase 4's dirs plane %s (%.1f MB): kernel %.4f ms,"
+          " plain (= library) %.4f ms, bound %.4f ms; the walk over it"
+          " %.3f ms" % (tuple(dirs4.shape), dirs4.numel() / 1e6, plane_ms,
+                        plane_library_ms,
+                        transpose_probe.transpose_bound_ms(dirs4), walk_ms))
 
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
          "replaces": "biseqt_tpu/ops/pallas_dp_ad.py:73",
          "launches": counts["dp_ad"], "max_abs_err": dp_err,
-         "ms": dp_ms, "plain_ms": dp_plain_ms},
+         "ms": dp_ms, "plain_ms": dp_plain_ms, "bound_ms": dp_bound,
+         "bound_by": dp_bound_by, "library_ms": None},
         {"name": "walk", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/walk.cu",
          "replaces": "biseqt_tpu/ops/pallas_walk.py:512",
          "launches": counts["walk"], "max_abs_err": walk_err,
-         "ms": walk_ms, "plain_ms": walk_plain_ms},
+         "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound,
+         "bound_by": walk_bound_by, "library_ms": None},
         {"name": "dp_row", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_row.cu",
          "replaces": "biseqt_tpu/ops/pallas_dp.py:54",
          "launches": row_launches, "max_abs_err": row_err,
-         "ms": row_ms, "plain_ms": row_plain_ms},
+         "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
+         "bound_by": row_bound_by, "library_ms": None},
+        # the plain version is PyTorch's transpose copy: plain = library
+        {"name": "transpose_probe", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/transpose_probe.cu",
+         "replaces": "experiments/transpose_probe.py:66",
+         "launches": probe_counts["transpose_probe"], "max_abs_err": tr_err,
+         "ms": tr_kernel["ms"], "plain_ms": tr_library["ms"],
+         "bound_ms": tr_kernel["bound_ms"], "bound_by": "bytes",
+         "library_ms": tr_library["ms"]},
+        # the ten ops at [I16_ROWS, 128], summed; each plain version is
+        # the op's PyTorch call, so plain = library
+        {"name": "i16_probe", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/i16_probe.cu",
+         "replaces": "experiments/mosaic_i16_probe.py:21",
+         "launches": probe_counts["i16_probe"], "max_abs_err": i16_err,
+         "ms": sum(row["ms"] for row in big),
+         "plain_ms": sum(row["plain_ms"] for row in big),
+         "bound_ms": sum(row["bound_ms"] for row in big), "bound_by": "bytes",
+         "library_ms": sum(row["plain_ms"] for row in big)},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -76,16 +76,18 @@ def test_full_dp_and_tracebacks_match_lax(rng, flags):
     kw = dict(subst=UNIT, go=-2.5, ge=-1.0)
     f_ref, f_port = ref.ModeFlags(**flags), port.ModeFlags(**flags)
     r = ref.full_dp(*jx(*args), flags=f_ref, with_dirs=True, **kw)
-    g = port.full_dp(*args, flags=f_port, with_dirs=True, **kw)
+    g = port.full_dp(*args, flags=f_port, with_dirs=True, device="cpu",
+                     **kw)
     assert_same(r, g)
     assert_same(ref.full_dp(*jx(*args), flags=f_ref, **kw),
-                port.full_dp(*args, flags=f_port, **kw))
+                port.full_dp(*args, flags=f_port, device="cpu", **kw))
     want = ref.full_dp_traceback(*jx(*args), flags=f_ref,
                                  end_i=np.asarray(r.end_i),
                                  end_j=np.asarray(r.end_j), block_rows=32,
                                  **kw)
     got = port.full_dp_traceback(*args, flags=f_port, end_i=g.end_i,
-                                 end_j=g.end_j, block_rows=32, **kw)
+                                 end_j=g.end_j, block_rows=32,
+                                 device="cpu", **kw)
     assert got == want
     ss, ts = args[:2]
     for b in range(len(ss)):
@@ -111,11 +113,12 @@ def test_banded_dp_matches_lax(rng, flags, subst, ge):
     r = ref.banded_dp(*jx(*args, dmin), flags=f_ref, with_dirs=True,
                       w_eff=jnp.asarray(w_eff), **kw)
     g = port.banded_dp(*args, dmin, flags=f_port, with_dirs=True,
-                       w_eff=w_eff, **kw)
+                       w_eff=w_eff, device="cpu", **kw)
     assert_same(r, g)
     assert_same(ref.banded_dp(*jx(*args, dmin), flags=f_ref,
                               w_eff=jnp.asarray(w_eff), **kw),
-                port.banded_dp(*args, dmin, flags=f_port, w_eff=w_eff, **kw))
+                port.banded_dp(*args, dmin, flags=f_port, w_eff=w_eff,
+                               device="cpu", **kw))
     ss, ts = args[:2]
     for b in range(len(ss)):
         if float(g.score[b]) <= -1e29:
@@ -146,7 +149,7 @@ def test_banded_dp_negative_dmax_long_t(rng):
                           w_eff=jnp.asarray(w_eff))
         g = port.banded_dp(*args, W=W, subst=UNIT, go=-2.0, ge=-1.0,
                            flags=port.ModeFlags(**flags), with_dirs=True,
-                           w_eff=w_eff)
+                           w_eff=w_eff, device="cpu")
         assert_same(r, g)
         assert float(g.score[0]) > 100    # the planted diagonal is in band
 
@@ -156,7 +159,8 @@ def test_engine_matches_oracle(rng, flags):
     """Banded (a band narrower than the matrix) and full solves against
     the cell-by-cell numpy oracle."""
     ss, ts, s_lens, t_lens = mk_pairs(rng, B=3, LS=40, LT=44)
-    kw = dict(subst=UNIT, go=-2.5, ge=-1.0, flags=port.ModeFlags(**flags))
+    kw = dict(subst=UNIT, go=-2.5, ge=-1.0, flags=port.ModeFlags(**flags),
+              device="cpu")
     full = port.full_dp(ss, ts, s_lens, t_lens, **kw).score.numpy()
     dmin = np.full((3,), -9, np.int32)
     banded = port.banded_dp(ss, ts, s_lens, t_lens, dmin, W=16,
@@ -177,7 +181,7 @@ def test_row0_ends_and_empty_origin():
     t = np.array([[0, 0]], np.int8)
     sl, sl0, tl = [2], [0], [1]
     dmin = [-4]
-    kw = dict(subst=subst, go=-2.0, ge=-1.0)
+    kw = dict(subst=subst, go=-2.0, ge=-1.0, device="cpu")
     F = port.ModeFlags
     cases = [
         (port.full_dp(s, t, sl, tl, flags=F(free_end_edges=True), **kw),
@@ -199,7 +203,7 @@ def test_positive_gap_scores_and_off_band_walks_raise():
     t = np.array([[0, 1, 2]], np.int8)
     with pytest.raises(ValueError, match="go <= 0"):
         port.banded_dp(s, t, [1], [3], [-4], W=8, subst=UNIT, go=1.0,
-                       ge=-1.0, flags=port.ModeFlags())
+                       ge=-1.0, flags=port.ModeFlags(), device="cpu")
     with pytest.raises(ValueError, match="left the direction plane"):
         port.traceback_path(np.ones((1, 8), np.uint8), s[0], t[0], 1, 3,
                             banded=True, dmax=-10)

@@ -8,7 +8,8 @@ so it also runs on a machine that has only PyTorch:
 
 Tolerance is exact: the kernels run the plain twins' arithmetic step for
 step, so scores, end cells, dirs planes, trace bytes and transcripts
-must be equal.  The batch helpers are shared with the CPU parity tests
+must be equal, and the probes' kernels move or combine integers.  The
+batch helpers are shared with the CPU parity tests
 (tests/test_torch_dp_ad.py, tests/test_torch_walk.py,
 tests/test_torch_dp_row.py).
 """
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from biseqt_tpu_torch import pw
+from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
 from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
@@ -286,3 +288,78 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     with pytest.raises(ValueError, match="A = 20"):
         dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=128, A=20, **kw)
     assert dp_row.LAUNCHES == n0
+    n0 = transpose_probe.LAUNCHES, i16_probe.LAUNCHES
+    with pytest.raises(ValueError, match="passed with device"):
+        transpose_probe.transpose_minor(torch.zeros((1, 2, 3),
+                                                    dtype=torch.uint8),
+                                        device=card)
+    with pytest.raises(ValueError, match="int16"):
+        i16_probe.i16_op("add", x, device=card)
+    with pytest.raises(ValueError, match="unknown op"):
+        i16_probe.i16_op("mul", x.to(torch.int16), device=card)
+    assert (transpose_probe.LAUNCHES, i16_probe.LAUNCHES) == n0
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 40, 72), (2, 128, 128),
+                                   (2, 130, 257), (5, 300, 129),
+                                   (4, 1000, 36), (1288, 512, 128)])
+def test_transpose_kernel_matches_plain(rng, card, shape):
+    """Ragged edges, widths that are not a multiple of the tile or of 4
+    (the byte path), and the probe's plane, larger than L2."""
+    x = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8),
+                        device=card)
+    n0 = transpose_probe.LAUNCHES
+    got = transpose_probe.transpose_minor(x, device=card)
+    assert transpose_probe.LAUNCHES == n0 + 1
+    want = transpose_probe.transpose_minor_reference(x, device=card)
+    assert transpose_probe.LAUNCHES == n0 + 1
+    assert got.shape == (shape[0], shape[2], shape[1]) and torch.equal(
+        got, want)
+
+
+def test_transpose_kernel_unaligned_base(rng, card):
+    """A contiguous plane at an odd byte offset takes the byte path."""
+    flat = torch.as_tensor(rng.integers(0, 256, 1 + 3 * 256 * 128)
+                           .astype(np.uint8), device=card)
+    x = flat[1:].view(3, 256, 128)
+    assert x.data_ptr() % 4
+    got = transpose_probe.transpose_minor(x, device=card)
+    assert torch.equal(got, x.transpose(1, 2).contiguous())
+
+
+@pytest.mark.parametrize("rows", [256, 1001])
+@pytest.mark.parametrize("name", i16_probe.OPS)
+def test_i16_kernel_matches_plain(rng, card, name, rows):
+    """Each op on the probe's input and on random int16 at a ragged row
+    count, and on an input whose base is not 8-byte aligned."""
+    host = (i16_probe.probe_input() if rows == 256 else
+            rng.integers(-32768, 32768, (rows, 128)).astype(np.int16))
+    x = torch.as_tensor(host, device=card)
+    n0 = i16_probe.LAUNCHES
+    got = i16_probe.i16_op(name, x, device=card)
+    assert i16_probe.LAUNCHES == n0 + 1
+    want = i16_probe.i16_op_reference(name, x, device=card)
+    assert i16_probe.LAUNCHES == n0 + 1
+    assert got.dtype == torch.int16 and torch.equal(got, want)
+    shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, 128)
+    assert shifted.data_ptr() % 8
+    assert torch.equal(i16_probe.i16_op(name, shifted, device=card), want)
+
+
+def test_entry_points_default_to_the_card(rng, card):
+    """Called without ``device``, the entry points run on the card."""
+    x = torch.as_tensor(rng.integers(0, 256, (2, 64, 128)).astype(np.uint8),
+                        device=card)
+    n0 = transpose_probe.LAUNCHES
+    assert torch.equal(transpose_probe.transpose_minor(x),
+                       x.transpose(1, 2).contiguous())
+    assert transpose_probe.LAUNCHES == n0 + 1
+    A4 = Alphabet("ACGT")
+    S = Sequence(A4, rng.integers(0, 4, 300))
+    n_dp, n_row = dp_ad.LAUNCHES, dp_row.LAUNCHES
+    out = extend_segments(S, S, [{"segment": ((-8, 8), (20, 560))}])
+    assert dp_ad.LAUNCHES == n_dp + 1 and out[0]["score"] == 300.0
+    with pw.Aligner(S, S, alnmode=pw.BANDED_MODE, alntype=pw.B_GLOBAL,
+                    diag_range=(-10, 10), backend="pallas_row") as aln:
+        assert aln.solve() == 300.0
+    assert dp_row.LAUNCHES == n_row + 1

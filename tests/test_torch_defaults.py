@@ -1,0 +1,172 @@
+"""The port's entry points default to the card, and the port keeps its
+own sources.
+
+* Every public entry point takes ``device="cuda"`` by default.  Called
+  without ``device`` where no card is present it raises a RuntimeError
+  that says so and launches nothing; with ``device="cpu"`` the same
+  call runs its plain PyTorch version.
+* The C++ host tier builds from the port's own copy of
+  ``pwnative.cpp``, byte for byte the JAX package's (a drift guard).
+* No module of the port imports the JAX package or names a path under
+  ``biseqt_tpu/``.
+"""
+
+import ast
+import inspect
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from biseqt_tpu_torch import native, pipeline, pw
+from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
+from biseqt_tpu_torch.ops import banded_dp, dp_ad, dp_row, walk
+from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "biseqt_tpu_torch")
+
+UNIT = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+LAUNCH_COUNTERS = (dp_ad, dp_row, walk, transpose_probe, i16_probe)
+
+
+def _pairs():
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 4, (2, 40)).astype(np.int8)
+    lens = np.full(2, 40, np.int32)
+    return s, s.copy(), lens, lens
+
+
+def _dp_kw():
+    return dict(subst=UNIT, go=-2.0, ge=-1.0,
+                flags=banded_dp.ModeFlags(local_start=True, local_end=True))
+
+
+def _extend(**kw):
+    A4 = Alphabet("ACGT")
+    S = Sequence(A4, np.random.default_rng(4).integers(0, 4, 200))
+    return pipeline.extend_segments(
+        S, S, [{"segment": ((-8, 8), (20, 300))}], **kw)
+
+
+def _aligner(**kw):
+    A4 = Alphabet("ACGT")
+    S = Sequence(A4, np.random.default_rng(5).integers(0, 4, 60))
+    with pw.Aligner(S, S, **kw) as aln:
+        return aln.solve()
+
+
+def _walk(fn, **kw):
+    zeros = np.zeros(2, np.int32)
+    return fn(torch.zeros((8, 1, 128), dtype=torch.uint8), zeros, zeros,
+              zeros, W=128, **kw)
+
+
+def _full_traceback(**kw):
+    return banded_dp.full_dp_traceback(*_pairs(), end_i=[40, 40],
+                                       end_j=[40, 40], **_dp_kw(), **kw)
+
+
+ENTRY_POINTS = {
+    "extend_segments": (pipeline.extend_segments, _extend),
+    "Aligner": (pw.Aligner, _aligner),
+    "banded_dp_ad": (dp_ad.banded_dp_ad, lambda **kw: dp_ad.banded_dp_ad(
+        *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
+    "banded_dp_ad_reference": (
+        dp_ad.banded_dp_ad_reference,
+        lambda **kw: dp_ad.banded_dp_ad_reference(
+            *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
+    "banded_dp_row": (dp_row.banded_dp_row, lambda **kw: dp_row.banded_dp_row(
+        *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
+    "banded_dp_row_reference": (
+        dp_row.banded_dp_row_reference,
+        lambda **kw: dp_row.banded_dp_row_reference(
+            *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
+    "traceback_walk": (walk.traceback_walk,
+                       lambda **kw: _walk(walk.traceback_walk, **kw)),
+    "traceback_walk_reference": (
+        walk.traceback_walk_reference,
+        lambda **kw: _walk(walk.traceback_walk_reference, **kw)),
+    "banded_dp": (banded_dp.banded_dp, lambda **kw: banded_dp.banded_dp(
+        *_pairs(), [-8, -8], W=17, **_dp_kw(), **kw)),
+    "full_dp": (banded_dp.full_dp, lambda **kw: banded_dp.full_dp(
+        *_pairs(), **_dp_kw(), **kw)),
+    "full_dp_traceback": (banded_dp.full_dp_traceback, _full_traceback),
+    "transpose_minor": (
+        transpose_probe.transpose_minor,
+        lambda **kw: transpose_probe.transpose_minor(
+            np.zeros((2, 3, 4), np.uint8), **kw)),
+    "transpose_minor_reference": (
+        transpose_probe.transpose_minor_reference,
+        lambda **kw: transpose_probe.transpose_minor_reference(
+            np.zeros((2, 3, 4), np.uint8), **kw)),
+    "i16_op": (i16_probe.i16_op, lambda **kw: i16_probe.i16_op(
+        "add", np.zeros((2, 128), np.int16), **kw)),
+    "i16_op_reference": (
+        i16_probe.i16_op_reference,
+        lambda **kw: i16_probe.i16_op_reference(
+            "add", np.zeros((2, 128), np.int16), **kw)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name, monkeypatch):
+    fn, call = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    launches = [m.LAUNCHES for m in LAUNCH_COUNTERS]
+    with pytest.raises(RuntimeError, match="CUDA card and none is present"):
+        call()
+    assert [m.LAUNCHES for m in LAUNCH_COUNTERS] == launches
+    call(device="cpu")                    # the same call runs on the CPU
+    assert [m.LAUNCHES for m in LAUNCH_COUNTERS] == launches
+
+
+def test_native_source_is_the_ports_own_copy():
+    assert os.path.commonpath([native.SOURCE, PORT]) == PORT
+    with open(native.SOURCE, "rb") as f:
+        ours = f.read()
+    with open(os.path.join(REPO, "biseqt_tpu", "native", "pwnative.cpp"),
+              "rb") as f:
+        assert ours == f.read()
+
+
+def _port_modules():
+    for root, _, files in os.walk(PORT):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def _names_jax_package(text: str) -> bool:
+    parts = text.replace("\\", "/").replace(".", "/").split("/")
+    return "biseqt_tpu" in parts
+
+
+def test_port_names_no_path_of_the_jax_package():
+    """Imports, and every string other than a docstring (a path join's
+    parts, a path literal), in every module of the port."""
+    found = []
+    for path in _port_modules():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                      if isinstance(node, (ast.Module, ast.FunctionDef,
+                                           ast.ClassDef))
+                      and node.body and isinstance(node.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            elif (isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)
+                  and id(node) not in docstrings):
+                names = [node.value]
+            else:
+                continue
+            found += ["%s:%d %r" % (os.path.relpath(path, REPO), node.lineno,
+                                    n) for n in names if _names_jax_package(n)]
+    assert not found, found
+    assert sum(1 for _ in _port_modules()) >= 14

@@ -75,7 +75,8 @@ def test_dp_row_matches_interpret_kernel(rng, with_dirs, flags):
     ref = banded_dp_pallas(*jx(*args), flags=RefFlags(**flags),
                            w_eff=jnp.asarray(w_eff), block_b=8,
                            interpret=True, **kw)
-    got = banded_dp_row(*args, flags=ModeFlags(**flags), w_eff=w_eff, **kw)
+    got = banded_dp_row(*args, flags=ModeFlags(**flags), w_eff=w_eff,
+                        device="cpu", **kw)
     assert_same(ref, got, dirs=with_dirs)
     assert got.dirs.shape == ((8, 100, 128) if with_dirs else (0,))
 
@@ -84,7 +85,8 @@ def lax_and_row(args, *, flags, w_eff=None, **kw):
     ref = banded_dp(*jx(*args), flags=RefFlags(**flags),
                     w_eff=None if w_eff is None else jnp.asarray(w_eff),
                     **kw)
-    got = banded_dp_row(*args, flags=ModeFlags(**flags), w_eff=w_eff, **kw)
+    got = banded_dp_row(*args, flags=ModeFlags(**flags), w_eff=w_eff,
+                        device="cpu", **kw)
     return ref, got
 
 
@@ -112,7 +114,8 @@ def test_dp_row_matches_lax(rng, flags, go):
     ref, got = lax_and_row(args, flags=flags, with_dirs=True, **kw)
     assert_same(ref, got, dirs=not flags.get("local_start"))
     assert_walks_equal(ref, got, args, 128, flags)
-    plain = banded_dp_row(*args, flags=ModeFlags(**flags), **kw)
+    plain = banded_dp_row(*args, flags=ModeFlags(**flags), device="cpu",
+                          **kw)
     np.testing.assert_array_equal(plain.score.numpy(), np.asarray(ref.score))
     if flags.get("local_end") or flags.get("free_end_edges"):
         assert (plain.end_i.numpy() == -1).all()
@@ -202,7 +205,7 @@ def test_dp_row_protein_blosum62(rng, ge):
 def test_dp_row_rejects_bad_input(rng):
     args, w_eff = mk_row_batch(rng, L=100)
     kw = dict(W=128, subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(),
-              w_eff=w_eff)
+              w_eff=w_eff, device="cpu")
     with pytest.raises(ValueError, match="multiple of 128"):
         banded_dp_row(*args, **dict(kw, W=200))
     with pytest.raises(ValueError, match="nonpositive"):
@@ -214,7 +217,7 @@ def test_dp_row_rejects_bad_input(rng):
     with pytest.raises(ValueError, match="alphabet"):
         banded_dp_row(bad, *args[1:], **kw)
     with pytest.raises(ValueError, match="unsupported device"):
-        banded_dp_row(*args, device="meta", **kw)
+        banded_dp_row(*args, **dict(kw, device="meta"))
 
 
 def test_dp_row_never_falls_back_to_cpu(rng):
@@ -226,7 +229,7 @@ def test_dp_row_never_falls_back_to_cpu(rng):
     kw = dict(W=128, subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(),
               w_eff=w_eff)
     n0 = dp_row.LAUNCHES
-    banded_dp_row(*args, **kw)
+    banded_dp_row(*args, device="cpu", **kw)
     assert dp_row.LAUNCHES == n0
     with pytest.raises((AssertionError, RuntimeError)):
         banded_dp_row(*args, device="cuda", **kw)

@@ -68,7 +68,8 @@ def test_protein_alignment_matches_oracle(rng, name, go, ge):
     subst = getattr(matrices, name)
     S, T = protein_pair(rng, 80)
     with pw.Aligner(S, T, alnmode=pw.STD_MODE, alntype=pw.GLOBAL,
-                    subst_scores=subst, go_score=go, ge_score=ge) as aln:
+                    subst_scores=subst, go_score=go, ge_score=ge,
+                    device="cpu") as aln:
         score = aln.solve()
         assert score == dp_oracle(S.contents, T.contents, subst, go, ge)
         assert aln.traceback().calculate_score(subst, go, ge) == score
@@ -85,6 +86,6 @@ def test_protein_banded_kernel_backends_match_lax(rng, backend):
               subst_scores=matrices.BLOSUM62, go_score=-11.0, ge_score=-1.0)
     out = []
     for be in ("lax", backend):
-        with pw.Aligner(S, T, backend=be, **kw) as aln:
+        with pw.Aligner(S, T, backend=be, device="cpu", **kw) as aln:
             out.append((aln.solve(), str(aln.traceback().transcript)))
     assert out[1] == out[0]

@@ -1,4 +1,4 @@
-"""The port's host tier: its ctypes loader of the shared C++ source, its
+"""The port's host tier: its ctypes loader of its C++ source, its
 copy of the sequence module, its profiling timers, and the rule that
 the port imports neither jax nor the JAX package.
 
@@ -31,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_loader_builds_shared_source_into_the_port():
     assert native.available()
-    assert native.SOURCE == os.path.join(REPO, "biseqt_tpu", "native",
+    assert native.SOURCE == os.path.join(REPO, "biseqt_tpu_torch", "csrc",
                                          "pwnative.cpp")
     assert os.path.dirname(native._SO) == os.path.join(
         REPO, "biseqt_tpu_torch", "build")
@@ -177,6 +177,7 @@ import biseqt_tpu_torch
 from biseqt_tpu_torch import (_build, matrices, native, pipeline, profiling,
                               pw, sequence)
 from biseqt_tpu_torch.ops import banded_dp, dp_ad, dp_row, walk
+from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 assert native.available()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "biseqt_tpu")]
 assert not bad, bad

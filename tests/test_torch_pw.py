@@ -43,6 +43,7 @@ def align(module, S, T, **kw):
     """Solve and traceback; returns (score, transcript, starts, rescored)."""
     if module is pw:
         S, T = from_reference(S), from_reference(T)
+        kw = dict(kw, device="cpu")
     with module.Aligner(S, T, **kw) as aln:
         score = aln.solve()
         alignment = aln.traceback()
@@ -110,7 +111,8 @@ def test_aligner_api_contract(rng):
     S, T = from_reference(S), from_reference(T)
     banded = dict(alnmode=pw.BANDED_MODE, alntype=pw.B_LOCAL,
                   diag_range=(-8, 8), go_score=-2.0, ge_score=-1.0)
-    with pw.Aligner(S, T, backend="pallas_row", **banded) as aln:
+    with pw.Aligner(S, T, backend="pallas_row", device="cpu",
+                    **banded) as aln:
         score = aln.solve()
         assert not aln._result_has_dirs and aln._result.dirs.numel() == 0
         alignment = aln.traceback()
@@ -120,13 +122,14 @@ def test_aligner_api_contract(rng):
         assert aln._result is res              # directions solved once
     assert alignment.score == score
     with pytest.raises(AssertionError):
-        pw.Aligner(S, T, alnmode=pw.STD_MODE, backend="pallas_row")
+        pw.Aligner(S, T, alnmode=pw.STD_MODE, backend="pallas_row",
+                   device="cpu")
     with pytest.raises(AssertionError):
-        pw.Aligner(S, T, backend="cuda")
+        pw.Aligner(S, T, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         pw.Aligner(S, T, device="meta")
     with pytest.raises(AssertionError, match="context manager"):
-        pw.Aligner(S, T).solve()
+        pw.Aligner(S, T, device="cpu").solve()
 
 
 # tests/test_pw.py's tests whose only JAX-package dependence is the
@@ -151,11 +154,11 @@ PW_TESTS = [
 
 class _PortAligner:
     """The port's Aligner behind the JAX package's constructor: carries
-    the JAX package's sequences across."""
+    the JAX package's sequences across, on the CPU."""
 
     def __new__(cls, origin, mutate, **kw):
         return pw.Aligner(from_reference(origin), from_reference(mutate),
-                          **kw)
+                          device="cpu", **kw)
 
 
 @pytest.mark.parametrize("name,params", [
