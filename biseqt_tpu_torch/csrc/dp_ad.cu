@@ -17,9 +17,9 @@
 //
 // What the design does about it.  One block per plane row (the two
 // pairs 2*b2 and 2*b2+1 on complementary parity lanes), one thread per
-// lane (two lanes per thread above 1024 lanes).  H, E, F and the
-// per-lane maxima stay in registers for the whole sweep; each step
-// publishes max(H + go, E), max(H + go, F) and the two gap-extension
+// lane (two lanes per thread above 1024 lanes, four above 2048).  H, E,
+// F and the per-lane maxima stay in registers for the whole sweep; each
+// step publishes max(H + go, E), max(H + go, F) and the two gap-extension
 // flags to a double-buffered shared array, so one __syncthreads per step
 // suffices.  Characters are read straight from the [B, L] code rows
 // (no shifted or interleaved streams); the substitution table lives in
@@ -229,7 +229,8 @@ extern "C" const char* bst_cuda_error_string(int code) {
 
 // Launches the sweep over B2 plane rows on `stream` (no synchronisation)
 // and returns cudaGetLastError().  All pointers are device pointers;
-// W must be even and at most 2048, A at most 32.
+// W must be even and at most 4096 (a multiple of 4 above 2048), A at
+// most 32.
 extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
                          const void* t_lens, const void* dminq,
                          const void* lo, const void* hi, const void* table,
@@ -241,7 +242,8 @@ extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
                          void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (W < 2 || W % 2 || W > 2048 || A < 1 || A > 32 || R < 1)
+    if (W < 2 || W % 2 || W > 4096 || (W > 2048 && W % 4) || A < 1 || A > 32
+        || R < 1)
         return (int)cudaErrorInvalidValue;
     if (B2 == 0 || Apad == 0) return 0;
     Args g;
@@ -268,9 +270,17 @@ extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
     const size_t smem = sizeof(float) * (4 * (size_t)W + (size_t)A * A)
                         + 2 * (size_t)W;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (W <= 1024)
+    if (W <= 1024) {
         dp_ad_kernel<1><<<B2, W, smem, st>>>(g);
-    else
+    } else if (W <= 2048) {
         dp_ad_kernel<2><<<B2, W / 2, smem, st>>>(g);
+    } else {
+        // 18 W + 4 A^2 bytes pass the 48 KB default above W ~2700
+        err = cudaFuncSetAttribute(dp_ad_kernel<4>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        dp_ad_kernel<4><<<B2, W / 4, smem, st>>>(g);
+    }
     return (int)cudaGetLastError();
 }

@@ -240,17 +240,21 @@ def traceback_batch_ad(dirs, dminq, s_codes, t_codes, s_lens, t_lens,
 
 
 def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
-                        t_lens, mode_flags):
+                        t_lens, mode_flags, *, moves=None):
     """Turn the walk's op traces into MSID transcripts.
 
     ``trace``: [2, Atr, B2cols] uint8 (numpy) from
     :func:`biseqt_tpu_torch.ops.walk.traceback_walk` — pair b owns
     column b // 2 of plane b % 2; ``fin_i`` / ``fin_j``: the walk's
-    final cursors [B] (-1 = skipped pair).  Every live cursor must lie
-    inside its pair's matrix (``0 <= fin_i <= s_len``,
-    ``0 <= fin_j <= t_len``): the C++ replay does not bound its reads,
-    so a cursor from a faulty walk would otherwise read a neighbouring
-    pair's row.  Returns ``(ops list[str], start_i, start_j)``.
+    final cursors [B] (-1 = skipped pair).  The C++ replay moves its
+    cursors once per op from ``(fin_i, fin_j)`` and reads the letters
+    there without bounds, so a faulty walk would otherwise read a
+    neighbouring pair's row: every live pair must stay inside its
+    matrix, ``fin_i + di <= s_len`` and ``fin_j + dj <= t_len`` (and
+    ``fin >= 0``), where ``moves = (di, dj)`` [B] are the trace's moves
+    (:func:`biseqt_tpu_torch.ops.walk.trace_moves`), counted here from
+    ``trace`` when not given.  Raises ``ValueError`` otherwise.  Returns
+    ``(ops list[str], start_i, start_j)``.
     """
     lib = _load()
     trace = np.ascontiguousarray(trace, np.uint8)
@@ -269,6 +273,15 @@ def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
     s_lens = np.asarray(s_lens, np.int64)[:B]
     t_lens = np.asarray(t_lens, np.int64)[:B]
     fi, fj = fin_i[:B], fin_j[:B]
+    if moves is None:
+        import torch
+        from .ops.walk import trace_moves
+
+        moves = [m.numpy() for m in trace_moves(torch.from_numpy(trace), B)]
+    di, dj = (np.asarray(m, np.int64)[:B] for m in moves)
+    if di.shape[0] < B or dj.shape[0] < B:
+        raise ValueError("moves hold %d / %d pairs, not %d"
+                         % (di.shape[0], dj.shape[0], B))
     live = (fi >= 0) & (fj >= 0)
     bad = np.nonzero(live & ((fi > s_lens) | (fj > t_lens)))[0]
     if bad.size:
@@ -277,6 +290,13 @@ def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
             "(fin_i %s, fin_j %s)" % (bad[:8].tolist(),
                                       fi[bad[:8]].tolist(),
                                       fj[bad[:8]].tolist()))
+    bad = np.nonzero(live & ((fi + di > s_lens) | (fj + dj > t_lens)))[0]
+    if bad.size:
+        raise ValueError(
+            "trace replay would leave its pair's matrix for pairs %s "
+            "(from (%s, %s) by (%s, %s) moves)"
+            % (bad[:8].tolist(), fi[bad[:8]].tolist(), fj[bad[:8]].tolist(),
+               di[bad[:8]].tolist(), dj[bad[:8]].tolist()))
     ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
     ops_buf = np.zeros((B, ops_stride), np.uint8)
     ops_len = np.zeros((B,), np.int32)

@@ -52,7 +52,7 @@ LAUNCHES = 0
 
 PAD_S = -1        # s pad code (never equals a t code)
 PAD_T = -2
-MAX_W = 2048      # kernel: 1024 threads x 2 lanes each
+MAX_W = 4096      # kernel: 1024 threads x 4 lanes each
 MAX_A = 32        # kernel: the A x A table lives in shared memory
 
 _NEGF = np.float32(NEG)
@@ -120,9 +120,9 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
               go, ge, r_chunk, device):
     """Pad the batch to whole plane rows and derive the per-pair lane
     geometry and the f32 constants both engines use."""
-    if W < 2 or W % 2 or W > MAX_W:
-        raise ValueError("W must be even and in [2, %d], got %d"
-                         % (MAX_W, W))
+    if W < 2 or W % 2 or W > MAX_W or (W > 2048 and W % 4):
+        raise ValueError("W must be even, a multiple of 4 above 2048, and"
+                         " in [2, MAX_W = %d], got %d" % (MAX_W, W))
     if not (go <= 0 and ge <= 0):
         raise ValueError("the kernel requires nonpositive gap scores")
     if r_chunk < 2 or r_chunk % 2:

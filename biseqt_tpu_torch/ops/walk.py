@@ -20,23 +20,41 @@ so every action emits one op and lowers ``A``).  The op of step ``a``
 byte row ``a // 4`` of ``trace[b % 2, :, b // 2]``; bytes of steps
 where the walker does not act are 0.  The final cursors (the
 alignment start) come back as ``fin_i`` / ``fin_j``.
+
+:func:`trace_moves` counts each pair's moves in a trace, so a caller can
+hold the trace to its end and start cells before replaying it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .banded_dp import on_device, resolve_device
 
-__all__ = ["traceback_walk", "traceback_walk_reference", "step_walk",
-           "LAUNCHES", "OP_NONE", "OP_DIAG", "OP_INS", "OP_DEL"]
+__all__ = ["traceback_walk", "traceback_walk_reference", "trace_moves",
+           "step_walk", "LAUNCHES", "DEPTH", "OP_NONE", "OP_DIAG", "OP_INS",
+           "OP_DEL"]
 
 OP_NONE, OP_DIAG, OP_INS, OP_DEL = 0, 1, 2, 3
 
 # CUDA kernel launches made by traceback_walk (never by the plain twin)
 LAUNCHES = 0
+
+# antidiagonals of the plane window the kernel copies to shared memory
+# at a time (32, 64 or 128; csrc/walk.cu).  64 was the fastest of the
+# three on an H100 (chip_smoke.py phase 5: 0.61, 0.45, 0.67 ms on the
+# smoke's full launch)
+DEPTH = 64
+
+# moves of each trace byte's four ops: [byte, (di, dj)], and its copy on
+# each device (made once: a copy from host memory waits for the stream)
+_MOVES = [[sum(((v >> s) & 3) in (OP_DIAG, OP_DEL) for s in (0, 2, 4, 6)),
+           sum(((v >> s) & 3) in (OP_DIAG, OP_INS) for s in (0, 2, 4, 6))]
+          for v in range(256)]
+_MOVES_ON = {}
 
 
 def step_walk(byte, act, A, X, I, J, ST):
@@ -117,10 +135,17 @@ def _walk_plain(dirs, dq, ei, ej, Rp, B2, W):
     return trace.contiguous(), I, J
 
 
-def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
+def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W, depth=DEPTH):
     global LAUNCHES
     from .. import _build
 
+    if W % 16 or dirs.data_ptr() % 16:
+        raise ValueError("the walk kernel copies the plane in 16-byte"
+                         " chunks: W must be a multiple of 16 and the plane"
+                         " aligned, got W %d at offset %d"
+                         % (W, dirs.data_ptr() % 16))
+    if depth not in (32, 64, 128):
+        raise ValueError("depth must be 32, 64 or 128, got %r" % (depth,))
     lib = _build.load("walk", _declare)
     dev = dirs.device
     TRb = (Rp + 1) // 2
@@ -130,7 +155,7 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     rc = lib.bst_walk(
         ptr(dirs), ptr(dq), ptr(ei), ptr(ej), Rp, B2, W, TRb, ptr(trace),
-        ptr(fi), ptr(fj), dev.index,
+        ptr(fi), ptr(fj), depth, dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, rc, "walk launch")
     LAUNCHES += 1
@@ -140,7 +165,7 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
 def _declare(lib):
     v, i = ctypes.c_void_p, ctypes.c_int
     lib.bst_walk.restype = i
-    lib.bst_walk.argtypes = [v, v, v, v, i, i, i, i, v, v, v, i, v]
+    lib.bst_walk.argtypes = [v, v, v, v, i, i, i, i, v, v, v, i, i, v]
 
 
 def _run(engine, dirs, dminq, end_i, end_j, W, device):
@@ -154,7 +179,8 @@ def _run(engine, dirs, dminq, end_i, end_j, W, device):
     return trace, fi[:B], fj[:B]
 
 
-def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda"):
+def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda",
+                   _depth: int = DEPTH):
     """Walk every pair's traceback over the dirs plane.
 
     ``dirs``: [Rp, B2, W] uint8 tensor on ``device`` (the plane of
@@ -165,11 +191,13 @@ def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda"):
     :func:`biseqt_tpu_torch.native.compact_sweep_ops_t`.
 
     On a CUDA ``device`` this launches the kernel of ``csrc/walk.cu``
+    (``W`` a multiple of 16; ``_depth`` antidiagonals per plane window)
     and raises if it cannot; on the CPU it runs
     :func:`traceback_walk_reference`.
     """
     device = resolve_device(device)
-    engine = _walk_cuda if device.type == "cuda" else _walk_plain
+    engine = (functools.partial(_walk_cuda, depth=_depth)
+              if device.type == "cuda" else _walk_plain)
     return _run(engine, dirs, dminq, end_i, end_j, W, device)
 
 
@@ -180,3 +208,21 @@ def traceback_walk_reference(dirs, dminq, end_i, end_j, *, W: int,
     arguments, same outputs, byte for byte."""
     return _run(_walk_plain, dirs, dminq, end_i, end_j, W,
                 resolve_device(device))
+
+
+def trace_moves(trace: torch.Tensor, B: int):
+    """Each pair's moves in a walk's trace, on the trace's device:
+    ``(di, dj)``, int32 [B], where ``di`` counts its diagonal and
+    deletion ops (rows of S consumed) and ``dj`` its diagonal and
+    insertion ops (letters of T consumed).  ``trace`` is
+    [2, rows, B2] uint8 in the layout of the module docstring (pair b
+    owns column ``b // 2`` of plane ``b % 2``).  A walk from end cell
+    ``(i, j)`` to start cell ``(fi, fj)`` has ``di == i - fi`` and
+    ``dj == j - fj``."""
+    lut = _MOVES_ON.get(trace.device)
+    if lut is None:
+        lut = _MOVES_ON[trace.device] = torch.tensor(
+            _MOVES, dtype=torch.int32, device=trace.device)
+    moves = lut[trace.long()].sum(dim=1, dtype=torch.int32)  # [2, B2, 2]
+    moves = moves.permute(1, 0, 2).reshape(-1, 2)[:B]
+    return moves[:, 0].contiguous(), moves[:, 1].contiguous()

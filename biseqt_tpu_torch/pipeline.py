@@ -25,7 +25,7 @@ import torch
 from . import native
 from .ops.banded_dp import ModeFlags, resolve_device
 from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
-from .ops.walk import traceback_walk
+from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
 
 __all__ = ["extend_segments", "cut_segment", "plan_launches",
@@ -228,15 +228,27 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                     continue
                 # padding pairs are skipped by the walk (-1 end cells)
                 real = torch.arange(len(x["dmin"]), device=device) < n
-                trace, fi, fj = traceback_walk(
-                    res.dirs, put(x["dminq"]),
-                    torch.where(real, res.end_i, -1),
-                    torch.where(real, res.end_j, -1), W=W, device=device)
+                ei = torch.where(real, res.end_i, -1)
+                ej = torch.where(real, res.end_j, -1)
+                trace, fi, fj = traceback_walk(res.dirs, put(x["dminq"]),
+                                               ei, ej, W=W, device=device)
                 del res
+                # every walk must move from its end cell to its start
+                # cell by its trace's ops: checked on the device, copied
+                # with the cursors in one transfer
+                di, dj = trace_moves(trace, len(ei))
+                bad = ((ei - fi) != di) | ((ej - fj) != dj)
+                fi, fj, di, dj, bad = torch.stack(
+                    [fi, fj, di, dj, bad.to(torch.int32)]).cpu().numpy()
+                if bad.any():
+                    raise RuntimeError(
+                        "the walk's trace does not lead from the end cells"
+                        " to its final cursors for pairs %s"
+                        % np.nonzero(bad)[0][:8].tolist())
                 g_ops, g_si, g_sj = native.compact_sweep_ops_t(
-                    trace.cpu().numpy(), fi.cpu().numpy(), fj.cpu().numpy(),
-                    x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
-                    x["t_lens"][:n], flags)
+                    trace.cpu().numpy(), fi, fj, x["s_codes"][:n],
+                    x["t_codes"][:n], x["s_lens"][:n], x["t_lens"][:n],
+                    flags, moves=(di[:n], dj[:n]))
             for b, idx in enumerate(idxs):
                 ops[idx] = g_ops[b]
                 si_all[idx] = g_si[b]

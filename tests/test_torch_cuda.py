@@ -98,11 +98,12 @@ def _assert_results_equal(got, want):
         assert a.device == b.device and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("W", [128, 1536])
+@pytest.mark.parametrize("W", [128, 1536, 3072, 4096])
 @pytest.mark.parametrize("flags", FLAG_CASES)
 def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
-    """Both lane layouts of the kernel (one and two lanes per thread),
-    every mode, unit and fractional general scores."""
+    """Every lane layout of the kernel (one, two and four lanes per
+    thread; above 48 KB of shared memory at W 3072 and 4096), every
+    mode, unit and fractional general scores."""
     args, w_eff = mk_batch(rng)
     args = [torch.as_tensor(x, device=card) for x in args]
     args[4] = args[4] + 128 - W          # keep the band around the diagonal
@@ -125,24 +126,76 @@ def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
         assert float(got.score.max()) > 60
 
 
-@pytest.mark.parametrize("B2,Rp,W", [(130, 16, 256), (20, 40, 128)])
-def test_walk_kernel_matches_plain(rng, card, B2, Rp, W):
-    """Random nibble planes: every source and gap bit pattern, skipped
-    pairs, a ragged pair count."""
+def _walk_plane(rng, kind, B2, Rp, W):
+    """A walk's inputs ``(dirs, dminq, end_i, end_j)``.  ``random``:
+    every source and gap bit pattern, so walks are short.  ``deep``:
+    nibbles that never stop, so every walk runs until i or j is 0 and
+    crosses many plane windows.  ``runs``: the same with four cells in
+    five diagonal, so the kernel takes long diagonal runs in one pass.
+    ``edges``: as ``deep``, with walkers that
+    start on lane 0 or lane W - 1.  ``gaps``: runs of insertions (or
+    deletions) longer than a window, so the gap state crosses window
+    boundaries, and walkers that leave the band.  Every kind has skipped
+    pairs (-1) and end cells beyond the plane (A >= 2 Rp)."""
     B = 2 * B2 - 1
-    dirs = rng.integers(0, 256, (Rp, B2, W)).astype(np.uint8)
-    dminq = rng.integers(-W + 1, 1, B).astype(np.int32)
-    ei = rng.integers(1, Rp, B).astype(np.int32)
-    ej = np.clip(ei - dminq - rng.integers(0, W, B), 0, Rp - 1
-                 ).astype(np.int32)
+    if kind == "random":
+        dirs = rng.integers(0, 256, (Rp, B2, W)).astype(np.uint8)
+    elif kind == "gaps":
+        # E-source + E-extend nibbles in some pairs' columns, F-source +
+        # F-extend in the others (runs to lane W - 1 or to lane 0), with
+        # a diagonal nibble now and then
+        run = rng.choice(np.array([0x66, 0xBB], np.uint8), (1, B2, 1))
+        diag = rng.random((Rp, B2, W)) < 0.01
+        dirs = np.where(diag, np.uint8(0x11), run).astype(np.uint8)
+    else:
+        src = rng.integers(1, 4, (2, Rp, B2, W))
+        bits = rng.integers(0, 4, (2, Rp, B2, W)) * 4
+        nib = src + bits * (rng.random((2, Rp, B2, W)) < 0.3)
+        dirs = (nib[0] + 16 * nib[1]).astype(np.uint8)
+        if kind == "runs":
+            diag = rng.random((Rp, B2, W)) < 0.8
+            dirs = np.where(diag, np.uint8(0x11), dirs).astype(np.uint8)
+    if kind == "random":
+        dminq = rng.integers(-W + 1, 1, B).astype(np.int32)
+        ei = rng.integers(1, Rp, B).astype(np.int32)
+        ej = np.clip(ei - dminq - rng.integers(0, W, B), 0, Rp - 1
+                     ).astype(np.int32)
+    else:
+        # start lane x, and the band start of the walker's parity
+        ei = rng.integers(Rp // 2, Rp, B).astype(np.int32)
+        ej = rng.integers(Rp // 2, Rp, B).astype(np.int32)
+        x = rng.integers(0, W, B)
+        if kind == "edges":
+            x = np.where(np.arange(B) % 2, W - 1, 0)
+        ej -= (ei - ej - x - np.arange(B)) % 2
+        dminq = (ei - ej - x).astype(np.int32)
     ei[::7] = -1
-    on = [torch.as_tensor(x, device=card) for x in (dirs, dminq, ei, ej)]
+    ei[3::11], ej[3::11] = Rp, Rp           # A = 2 Rp: never acts
+    return dirs, dminq, ei, ej
+
+
+@pytest.mark.parametrize("kind,B2,Rp,W", [
+    ("random", 130, 16, 256), ("random", 20, 40, 128),
+    ("deep", 8, 640, 4096), ("deep", 40, 601, 128), ("runs", 16, 700, 256),
+    ("edges", 16, 333, 256), ("gaps", 12, 400, 512)])
+@pytest.mark.parametrize("depth", [32, 64, 128])
+def test_walk_kernel_matches_plain(rng, card, kind, B2, Rp, W, depth):
+    """The kernel against its twin, trace bytes and cursors, at every
+    window depth: random planes, walks across hundreds of windows at W
+    4096, long diagonal runs, walkers on the band's edge lanes, gap runs
+    across window boundaries, odd Rp, skipped pairs and end cells beyond
+    the plane."""
+    on = [torch.as_tensor(x, device=card)
+          for x in _walk_plane(rng, kind, B2, Rp, W)]
     n0 = walk.LAUNCHES
-    got = walk.traceback_walk(*on, W=W, device=card)
+    got = walk.traceback_walk(*on, W=W, device=card, _depth=depth)
     assert walk.LAUNCHES == n0 + 1
     want = walk.traceback_walk_reference(*on, W=W, device=card)
     _assert_results_equal(got, want)
     assert got[0].any()
+    if kind in ("deep", "runs", "gaps"):
+        di, dj = walk.trace_moves(got[0], len(on[0]))
+        assert int((di + dj).max()) > 2 * depth     # crosses windows
 
 
 def test_extend_segments_card_matches_cpu(rng, card):
@@ -275,12 +328,18 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     kw = dict(subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(), device=card)
     n0 = dp_ad.LAUNCHES
     with pytest.raises(ValueError, match="W must be even"):
-        dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0, W=4096, **kw)
+        dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0, W=4224, **kw)
     with pytest.raises(ValueError, match="passed with device"):
         dp_ad.banded_dp_ad(x.cpu(), x, lens, lens, lens * 0, W=128, **kw)
     with pytest.raises(ValueError, match="dirs must be uint8"):
         walk.traceback_walk(torch.zeros((4, 1, 128), device=card), lens,
                             lens, lens, W=128, device=card)
+    n_walk = walk.LAUNCHES
+    with pytest.raises(ValueError, match="multiple of 16"):
+        walk.traceback_walk(torch.zeros((4, 1, 130), dtype=torch.uint8,
+                                        device=card), lens, lens, lens,
+                            W=130, device=card)
+    assert walk.LAUNCHES == n_walk
     assert dp_ad.LAUNCHES == n0
     n0 = dp_row.LAUNCHES
     with pytest.raises(ValueError, match="multiple of 128"):

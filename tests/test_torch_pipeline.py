@@ -107,3 +107,23 @@ def test_extend_segments_transcripts_native_unavailable(rng, monkeypatch):
                                  device="cpu")
     # score-only mode does not need it
     assert pipeline.extend_segments(S, S, [seg], device="cpu")[0]["score"] > 0
+
+
+def test_extend_segments_band_above_2048_matches():
+    """A segment whose padded band buckets to W 3072, past the 2048 lanes
+    the port's K1 once took: scores, transcript and start cells equal
+    the JAX package's (its default engine), and the score is 13.0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    S, T = rand_seq(A4, 1200, rng=rng), rand_seq(A4, 1200, rng=rng)
+    segments = [{"segment": ((-1100, 1100), (1200, 1300))}]
+    cut = pipeline.cut_segment(segments[0], len(S), len(T))
+    assert pipeline.plan_launches([cut], True)[0][3] == 3072
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True)
+    want = ref_pipeline.extend_segments(S, T, segments, **kw)
+    got = pipeline.extend_segments(from_reference(S), from_reference(T),
+                                   segments, device="cpu", **kw)
+    assert got == want
+    assert got[0]["score"] == 13.0 and got[0]["transcript"]
+    _rescores(S, T, got)

@@ -18,10 +18,12 @@ import jax.numpy as jnp
 from biseqt_tpu import native as ref_native
 from biseqt_tpu.ops.banded_dp import ModeFlags as RefFlags
 from biseqt_tpu.ops.pallas_walk import traceback_sweep, traceback_sweep_t
-from biseqt_tpu_torch import native
+from biseqt_tpu.sequence import Alphabet
+from biseqt_tpu.stochastics import rand_seq
+from biseqt_tpu_torch import native, pipeline
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
 from biseqt_tpu_torch.ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
-from biseqt_tpu_torch.ops.walk import traceback_walk
+from biseqt_tpu_torch.ops.walk import trace_moves, traceback_walk
 from test_torch_cuda import UNIT, mk_batch
 
 FLAG_CASES = [
@@ -178,3 +180,84 @@ def test_compactor_rejects_cursor_outside_matrix(rng):
         with pytest.raises(ValueError, match="outside their pair"):
             native.compact_sweep_ops_t(tr, bad_i, bad_j, ss, ts, s_lens,
                                        t_lens, f)
+
+
+@pytest.mark.parametrize("with_moves", [False, True])
+def test_compactor_rejects_replay_past_matrix(with_moves):
+    """Six diagonal ops from (0, 0) on a 4 x 4 pair: the cursors are
+    inside the matrix, but the replay would read two letters of the next
+    pair ('MMMMSS').  Refused whether the moves are counted by the
+    compactor or passed in."""
+    trace = np.zeros((2, 2, 1), np.uint8)
+    trace[0, :, 0] = (0x55, 0x05)          # op 1 at steps 0..5 of pair 0
+    s = np.array([[0, 1, 2, 3], [1, 1, 1, 1]], np.int8)
+    t = np.array([[0, 1, 2, 3], [2, 2, 2, 2]], np.int8)
+    lens = np.array([4, 4], np.int32)
+    zero = np.zeros(2, np.int32)
+    kw = dict(moves=(np.array([6, 0]), np.array([6, 0]))) if with_moves \
+        else {}
+    with pytest.raises(ValueError, match="leave its pair's matrix"):
+        native.compact_sweep_ops_t(trace, zero, zero, s, t, lens, lens,
+                                   ModeFlags(local_start=True), **kw)
+    # four diagonal ops stay inside: 'MMMM'
+    trace[0, 1, 0] = 0
+    ops, _, _ = native.compact_sweep_ops_t(trace, zero, zero, s, t, lens,
+                                           lens, ModeFlags(local_start=True))
+    assert ops == ["MMMM", ""]
+
+
+def _numpy_moves(trace, B):
+    ops = (trace[..., None] >> np.array([0, 2, 4, 6])) & 3
+    di = ((ops == 1) | (ops == 3)).sum(axis=(1, 3))      # [2, B2]
+    dj = ((ops == 1) | (ops == 2)).sum(axis=(1, 3))
+    return di.T.reshape(-1)[:B], dj.T.reshape(-1)[:B]
+
+
+@pytest.mark.parametrize("kind", ["random", "real"])
+def test_trace_moves_matches_numpy_count(rng, kind):
+    """trace_moves against a plain numpy count, on random bytes and on a
+    real walk's trace, where the moves lead from end to start cells."""
+    if kind == "random":
+        trace = rng.integers(0, 256, (2, 37, 11)).astype(np.uint8)
+        B = 21
+    else:
+        args, w_eff = mk_batch(rng)
+        res, dminq = dp_plane(args, w_eff, dict(local_start=True,
+                                                local_end=True))
+        trace, fi, fj = traceback_walk(res.dirs, dminq, res.end_i,
+                                       res.end_j, W=128, device="cpu")
+        trace = trace.numpy()
+        B = len(dminq)
+    di, dj = trace_moves(torch.from_numpy(trace), B)
+    assert di.dtype == dj.dtype == torch.int32 and di.shape == (B,)
+    want_di, want_dj = _numpy_moves(trace, B)
+    np.testing.assert_array_equal(di.numpy(), want_di)
+    np.testing.assert_array_equal(dj.numpy(), want_dj)
+    if kind == "real":
+        np.testing.assert_array_equal(di, res.end_i - fi)
+        np.testing.assert_array_equal(dj, res.end_j - fj)
+        assert di.numpy().max() > 100
+
+
+def test_extend_segments_rejects_trace_off_its_end_cells(rng, monkeypatch):
+    """A walk whose trace does not lead from the end cells to its final
+    cursors (one diagonal op turned into an insertion) is refused before
+    the replay."""
+    A4 = Alphabet("ACGT")
+    S = rand_seq(A4, 400, rng=rng)
+    seg = {"segment": ((-8, 8), (100, 700))}
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
+              device="cpu", _r_chunk=16)
+    good = pipeline.extend_segments(S, S, [seg], **kw)
+    assert good[0]["transcript"].count("M") > 200
+
+    def corrupt(*args, **kwargs):
+        trace, fi, fj = traceback_walk(*args, **kwargs)
+        trace = trace.clone()
+        row = int(torch.nonzero(trace[0, :, 0] & 3 == 1)[0, 0])
+        trace[0, row, 0] += 1               # the op of its first step: 1 -> 2
+        return trace, fi, fj
+
+    monkeypatch.setattr(pipeline, "traceback_walk", corrupt)
+    with pytest.raises(RuntimeError, match="does not lead from the end"):
+        pipeline.extend_segments(S, S, [seg], **kw)
