@@ -29,13 +29,14 @@
 // both windows.  So a walker pays about one memory round trip per D
 // antidiagonals instead of one per action, and the warp walks a run of
 // diagonal actions in one pass (below).  The slack makes the copies
-// ~(D / 2)(4D + 16) bytes per D antidiagonals: at the wrapper's D = 64
-// the copies, ~1.4 GB per smoke launch, bound the kernel more than the
-// chain of windows does.  The walker jumps from one
-// action to the next (the TPU kernel sweeps every antidiagonal in
-// lockstep); that is the same walk because every action lowers A or
-// ends the walk, and the bytes of steps where a walker does not act are
-// 0 (the wrapper zeroes the trace).  Ops are packed four per byte in a
+// ~(D / 2)(4D + 16) bytes per D antidiagonals: at D = 64 the copies,
+// ~1.4 GB per smoke launch, bound the kernel more than the chain of
+// windows does.  D = 64 was the fastest of 32, 64 and 128 on an H100
+// (0.61, 0.45, 0.67 ms on the smoke's full launch; PERF.md).  The
+// walker jumps from one action to the next (the TPU kernel sweeps every
+// antidiagonal in lockstep); that is the same walk because every action
+// lowers A or ends the walk, and the bytes of steps where a walker does
+// not act are 0 (the wrapper zeroes the trace).  Ops are packed four per byte in a
 // register and each trace byte is stored once, when its row changes.
 
 #include <cstdint>
@@ -46,10 +47,10 @@ namespace {
 
 constexpr int OP_INS = 2;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int D = 64;   // antidiagonals per plane window
 
 // One buffer holds D / 2 + 1 rows of 4D + 16 bytes (4D + 1 lanes with
 // the start rounded down to 16 bytes).
-template <int D>
 struct Window {
     static constexpr int ROWS = D / 2 + 1;
     static constexpr int STRIDE = 4 * D + 16;       // bytes per row
@@ -82,7 +83,6 @@ struct Window {
 // the same lane X) and a ballot finds the run of diagonal actions that
 // starts here, so a run of up to 32 diagonals (the bulk of a homologous
 // alignment) takes one pass; any other action is one fused step.
-template <int D>
 __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
                             const int32_t* __restrict__ dminq,
                             const int32_t* __restrict__ end_i,
@@ -91,12 +91,11 @@ __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
                             uint8_t* __restrict__ trace,
                             int32_t* __restrict__ fin_i,
                             int32_t* __restrict__ fin_j) {
-    using Win = Window<D>;
     extern __shared__ __align__(16) uint8_t smem[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int b = blockIdx.x * (blockDim.x >> 5) + warp;
     if (b >= 2 * B2) return;   // whole warps
-    uint8_t* bufs = smem + (size_t)warp * 2 * Win::SIZE;
+    uint8_t* bufs = smem + (size_t)warp * 2 * Window::SIZE;
 
     const int par = b & 1, col = b >> 1;
     int I = end_i[b], J = end_j[b];
@@ -112,9 +111,9 @@ __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
 
     if (A >= 0) {
         // the window being walked and the one on its way
-        Win wc, wn;
+        Window wc, wn;
         uint8_t* bc = bufs;
-        uint8_t* bn = bufs + Win::SIZE;
+        uint8_t* bn = bufs + Window::SIZE;
         int top = A;
         wc.fetch(plane, row_bytes, W, top, X, bc, lane);
         __pipeline_commit();
@@ -134,7 +133,7 @@ __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
                 const bool held = ak >= 0 && ak >= floor_a;
                 int nib = 0;
                 if (on && held)
-                    nib = (bc[((ak >> 1) - wc.r_lo) * Win::STRIDE
+                    nib = (bc[((ak >> 1) - wc.r_lo) * Window::STRIDE
                               + (X - wc.x0)] >> (4 * (ak & 1))) & 15;
                 int run = 0;
                 if (ST == 0) {
@@ -219,33 +218,6 @@ __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
     }
 }
 
-template <int D>
-int launch(const void* dirs, const void* dminq, const void* end_i,
-           const void* end_j, int Rp, int B2, int W, int TRb, void* trace,
-           void* fin_i, void* fin_j, cudaStream_t stream) {
-    const size_t per_warp = 2 * (size_t)Window<D>::SIZE;
-    // four warps a block (a few blocks per SM at the smoke's 512
-    // walkers), fewer where their windows outgrow shared memory
-    const int warps = per_warp * 4 <= 200 * 1024
-                          ? 4 : (int)((200 * 1024) / per_warp);
-    const size_t smem = warps * per_warp;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            walk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int blocks = (2 * B2 + warps - 1) / warps;
-    walk_kernel<D><<<blocks, 32 * warps, smem, stream>>>(
-        static_cast<const uint8_t*>(dirs),
-        static_cast<const int32_t*>(dminq),
-        static_cast<const int32_t*>(end_i),
-        static_cast<const int32_t*>(end_j), Rp, B2, W, TRb,
-        static_cast<uint8_t*>(trace), static_cast<int32_t*>(fin_i),
-        static_cast<int32_t*>(fin_j));
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" const char* bst_cuda_error_string(int code) {
@@ -253,31 +225,35 @@ extern "C" const char* bst_cuda_error_string(int code) {
 }
 
 // Walks the 2*B2 walkers of a [Rp, B2, W] plane on `stream` (no
-// synchronisation) with windows of `depth` antidiagonals (32, 64 or
-// 128) and returns cudaGetLastError().  `trace` is [2, TRb, B2] and
-// must be zeroed by the caller; all pointers are device pointers; the
-// plane must be 16-byte aligned and W a multiple of 16.
+// synchronisation) and returns cudaGetLastError().  `trace` is
+// [2, TRb, B2] and must be zeroed by the caller; all pointers are
+// device pointers; the plane must be 16-byte aligned and W a multiple
+// of 16.
 extern "C" int bst_walk(const void* dirs, const void* dminq,
                         const void* end_i, const void* end_j, int Rp, int B2,
                         int W, int TRb, void* trace, void* fin_i,
-                        void* fin_j, int depth, int device, void* stream) {
+                        void* fin_j, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B2 <= 0 || Rp <= 0) return 0;
     if (2 * TRb < Rp || W % 16 || reinterpret_cast<uintptr_t>(dirs) % 16)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (depth) {
-    case 32:
-        return launch<32>(dirs, dminq, end_i, end_j, Rp, B2, W, TRb, trace,
-                          fin_i, fin_j, st);
-    case 64:
-        return launch<64>(dirs, dminq, end_i, end_j, Rp, B2, W, TRb, trace,
-                          fin_i, fin_j, st);
-    case 128:
-        return launch<128>(dirs, dminq, end_i, end_j, Rp, B2, W, TRb, trace,
-                           fin_i, fin_j, st);
-    default:
-        return (int)cudaErrorInvalidValue;
-    }
+    // four warps a block (a few blocks per SM at the smoke's 512
+    // walkers, 70 KB of windows)
+    constexpr int warps = 4;
+    constexpr size_t smem = warps * 2 * (size_t)Window::SIZE;
+    err = cudaFuncSetAttribute(walk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (2 * B2 + warps - 1) / warps;
+    walk_kernel<<<blocks, 32 * warps, smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(dirs),
+        static_cast<const int32_t*>(dminq),
+        static_cast<const int32_t*>(end_i),
+        static_cast<const int32_t*>(end_j), Rp, B2, W, TRb,
+        static_cast<uint8_t*>(trace), static_cast<int32_t*>(fin_i),
+        static_cast<int32_t*>(fin_j));
+    return (int)cudaGetLastError();
 }

@@ -28,7 +28,6 @@ hold the trace to its end and start cells before replaying it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -44,9 +43,7 @@ OP_NONE, OP_DIAG, OP_INS, OP_DEL = 0, 1, 2, 3
 LAUNCHES = 0
 
 # antidiagonals of the plane window the kernel copies to shared memory
-# at a time (32, 64 or 128; csrc/walk.cu).  64 was the fastest of the
-# three on an H100 (chip_smoke.py phase 5: 0.61, 0.45, 0.67 ms on the
-# smoke's full launch)
+# at a time: the constant D of csrc/walk.cu
 DEPTH = 64
 
 # moves of each trace byte's four ops: [byte, (di, dj)], and its copy on
@@ -135,7 +132,7 @@ def _walk_plain(dirs, dq, ei, ej, Rp, B2, W):
     return trace.contiguous(), I, J
 
 
-def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W, depth=DEPTH):
+def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
     global LAUNCHES
     from .. import _build
 
@@ -144,8 +141,6 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W, depth=DEPTH):
                          " chunks: W must be a multiple of 16 and the plane"
                          " aligned, got W %d at offset %d"
                          % (W, dirs.data_ptr() % 16))
-    if depth not in (32, 64, 128):
-        raise ValueError("depth must be 32, 64 or 128, got %r" % (depth,))
     lib = _build.load("walk", _declare)
     dev = dirs.device
     TRb = (Rp + 1) // 2
@@ -155,7 +150,7 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W, depth=DEPTH):
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     rc = lib.bst_walk(
         ptr(dirs), ptr(dq), ptr(ei), ptr(ej), Rp, B2, W, TRb, ptr(trace),
-        ptr(fi), ptr(fj), depth, dev.index,
+        ptr(fi), ptr(fj), dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, rc, "walk launch")
     LAUNCHES += 1
@@ -165,7 +160,7 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W, depth=DEPTH):
 def _declare(lib):
     v, i = ctypes.c_void_p, ctypes.c_int
     lib.bst_walk.restype = i
-    lib.bst_walk.argtypes = [v, v, v, v, i, i, i, i, v, v, v, i, i, v]
+    lib.bst_walk.argtypes = [v, v, v, v, i, i, i, i, v, v, v, i, v]
 
 
 def _run(engine, dirs, dminq, end_i, end_j, W, device):
@@ -179,8 +174,7 @@ def _run(engine, dirs, dminq, end_i, end_j, W, device):
     return trace, fi[:B], fj[:B]
 
 
-def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda",
-                   _depth: int = DEPTH):
+def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda"):
     """Walk every pair's traceback over the dirs plane.
 
     ``dirs``: [Rp, B2, W] uint8 tensor on ``device`` (the plane of
@@ -191,13 +185,11 @@ def traceback_walk(dirs, dminq, end_i, end_j, *, W: int, device="cuda",
     :func:`biseqt_tpu_torch.native.compact_sweep_ops_t`.
 
     On a CUDA ``device`` this launches the kernel of ``csrc/walk.cu``
-    (``W`` a multiple of 16; ``_depth`` antidiagonals per plane window)
-    and raises if it cannot; on the CPU it runs
+    (``W`` a multiple of 16) and raises if it cannot; on the CPU it runs
     :func:`traceback_walk_reference`.
     """
     device = resolve_device(device)
-    engine = (functools.partial(_walk_cuda, depth=_depth)
-              if device.type == "cuda" else _walk_plain)
+    engine = _walk_cuda if device.type == "cuda" else _walk_plain
     return _run(engine, dirs, dminq, end_i, end_j, W, device)
 
 
@@ -218,11 +210,15 @@ def trace_moves(trace: torch.Tensor, B: int):
     [2, rows, B2] uint8 in the layout of the module docstring (pair b
     owns column ``b // 2`` of plane ``b % 2``).  A walk from end cell
     ``(i, j)`` to start cell ``(fi, fj)`` has ``di == i - fi`` and
-    ``dj == j - fj``."""
+    ``dj == j - fj``.
+
+    Four device operations: the trace's int32 copy (indices), one gather
+    from a 256-entry table of each byte's moves (uint8), one int32 sum
+    over the rows and the reorder of the [2, B2] columns into pairs."""
     lut = _MOVES_ON.get(trace.device)
     if lut is None:
         lut = _MOVES_ON[trace.device] = torch.tensor(
-            _MOVES, dtype=torch.int32, device=trace.device)
-    moves = lut[trace.long()].sum(dim=1, dtype=torch.int32)  # [2, B2, 2]
-    moves = moves.permute(1, 0, 2).reshape(-1, 2)[:B]
-    return moves[:, 0].contiguous(), moves[:, 1].contiguous()
+            _MOVES, dtype=torch.uint8, device=trace.device)
+    moves = lut[trace.int()].sum(dim=1, dtype=torch.int32)  # [2, B2, 2]
+    moves = moves.transpose(0, 1).reshape(-1, 2)[:B]
+    return moves[:, 0], moves[:, 1]

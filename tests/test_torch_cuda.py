@@ -178,24 +178,22 @@ def _walk_plane(rng, kind, B2, Rp, W):
     ("random", 130, 16, 256), ("random", 20, 40, 128),
     ("deep", 8, 640, 4096), ("deep", 40, 601, 128), ("runs", 16, 700, 256),
     ("edges", 16, 333, 256), ("gaps", 12, 400, 512)])
-@pytest.mark.parametrize("depth", [32, 64, 128])
-def test_walk_kernel_matches_plain(rng, card, kind, B2, Rp, W, depth):
-    """The kernel against its twin, trace bytes and cursors, at every
-    window depth: random planes, walks across hundreds of windows at W
-    4096, long diagonal runs, walkers on the band's edge lanes, gap runs
-    across window boundaries, odd Rp, skipped pairs and end cells beyond
-    the plane."""
+def test_walk_kernel_matches_plain(rng, card, kind, B2, Rp, W):
+    """The kernel against its twin, trace bytes and cursors: random
+    planes, walks across many plane windows at W 4096, long diagonal
+    runs, walkers on the band's edge lanes, gap runs across window
+    boundaries, odd Rp, skipped pairs and end cells beyond the plane."""
     on = [torch.as_tensor(x, device=card)
           for x in _walk_plane(rng, kind, B2, Rp, W)]
     n0 = walk.LAUNCHES
-    got = walk.traceback_walk(*on, W=W, device=card, _depth=depth)
+    got = walk.traceback_walk(*on, W=W, device=card)
     assert walk.LAUNCHES == n0 + 1
     want = walk.traceback_walk_reference(*on, W=W, device=card)
     _assert_results_equal(got, want)
     assert got[0].any()
     if kind in ("deep", "runs", "gaps"):
         di, dj = walk.trace_moves(got[0], len(on[0]))
-        assert int((di + dj).max()) > 2 * depth     # crosses windows
+        assert int((di + dj).max()) > 2 * walk.DEPTH   # crosses windows
 
 
 def test_extend_segments_card_matches_cpu(rng, card):

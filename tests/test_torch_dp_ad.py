@@ -198,32 +198,26 @@ def test_dp_ad_rejects_bad_input(rng):
 
 @pytest.mark.parametrize("flags", FLAG_CASES)
 def test_dp_ad_band_of_4096_lanes_matches_lax(rng, flags):
-    """W 4096, the widest K1 band, against the JAX lax engine at the same
-    W: the batch's bands sit at the top of the lanes (as at W 128) and
-    one pair's band spans every lane.  Scores equal, and the port's end
-    cells equal its own at W 128 on the pairs whose band is unchanged."""
-    args, w_narrow = mk_batch(rng)
+    """W 4096, the widest K1 band, against the JAX kernel (interpret mode)
+    and the JAX lax engine at the same W: the batch's bands sit at the
+    top of the lanes (as at W 128) and one pair's band spans every lane.
+    Scores, end cells and the dirs plane's live nibbles equal the JAX
+    kernel's; scores and end cells equal the lax engine's."""
+    args, w_eff = mk_batch(rng)
     W = 4096
-    dmin, w_eff = args[4] + 128 - W, w_narrow.copy()
+    dmin = args[4] + 128 - W
     dmin[2], w_eff[2] = -W // 2, W - 1
     args = (*args[:4], dmin)
-    kw = dict(subst=UNIT, go=-2.0, ge=-1.0, w_eff=w_eff)
-    ref = banded_dp(*[jnp.asarray(x) for x in args], W=W,
-                    flags=RefFlags(**flags), **dict(kw, w_eff=jnp.asarray(
-                        w_eff)))
-    got = banded_dp_ad(*args, W=W, flags=dp_ad.ModeFlags(**flags),
-                       with_dirs=True, r_chunk=16, device="cpu", **kw)
-    np.testing.assert_array_equal(got.score.numpy(), np.asarray(ref.score))
+    ref, got = run_both(args, w_eff, subst=UNIT, go=-2.0, ge=-1.0,
+                        flags=flags, W=W)
+    assert_same(ref, got, dmin, w_eff, W=W)
     assert float(got.score.max()) > 60
-    narrow = banded_dp_ad(*args[:4], args[4] - 128 + W, W=128,
-                          flags=dp_ad.ModeFlags(**flags), with_dirs=True,
-                          r_chunk=16, device="cpu",
-                          **dict(kw, w_eff=w_narrow))
-    same = [0, 1, 3, 4]
-    np.testing.assert_array_equal(got.end_i.numpy()[same],
-                                  narrow.end_i.numpy()[same])
-    np.testing.assert_array_equal(got.end_j.numpy()[same],
-                                  narrow.end_j.numpy()[same])
+    lax = banded_dp(*[jnp.asarray(x) for x in args], W=W, subst=UNIT,
+                    go=-2.0, ge=-1.0, flags=RefFlags(**flags),
+                    w_eff=jnp.asarray(w_eff))
+    for name in ("score", "end_i", "end_j"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(lax, name)))
 
 
 def test_dp_ad_refuses_bands_above_4096(rng):
