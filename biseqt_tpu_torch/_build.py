@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["load", "check", "build_log", "NVCC_FLAGS"]
+__all__ = ["load", "check", "build_log", "so_path", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -94,6 +94,11 @@ def load(name: str, declare) -> ctypes.CDLL:
     declare(lib)
     _LIBS[name] = lib
     return lib
+
+
+def so_path(name: str) -> str:
+    """The path of the current build of ``csrc/<name>.cu``."""
+    return _paths(name)[1]
 
 
 def build_log(name: str) -> str:

@@ -9,11 +9,11 @@
 // antidiagonal steps: every step of a plane row needs the gap values of
 // its neighbour lanes from the step before.  Per step and lane the work
 // is two byte loads of the sequences, one exchange through shared
-// memory and ~40 dependent float and integer operations; the only
-// traffic to device memory is the direction plane, half a byte per
-// cell, written once and coalesced (~0.8 GB per 512-pair launch at
-// W = 256).  So the kernel is bound by instruction issue and by the
-// latency of the per-step barrier, not by bytes.
+// memory and ~20 dependent float operations; the only traffic to device
+// memory is the direction plane, half a byte per cell, written once and
+// coalesced (~0.8 GB per 512-pair launch at W = 256).  So the kernel is
+// bound by the latency of the per-step chain (exchange, barrier,
+// recurrence) and by instruction issue, not by bytes.
 //
 // What the design does about it.  One block per plane row (the two
 // pairs 2*b2 and 2*b2+1 on complementary parity lanes), one thread per
@@ -21,11 +21,20 @@
 // F and the per-lane maxima stay in registers for the whole sweep; each
 // step publishes max(H + go, E), max(H + go, F) and the two gap-extension
 // flags to a double-buffered shared array, so one __syncthreads per step
-// suffices.  Characters are read straight from the [B, L] code rows
-// (no shifted or interleaved streams); the substitution table lives in
-// shared memory and serves any alphabet up to 32 letters.  Each thread
-// writes its own dirs byte on odd steps, coalesced along the lanes, at
-// 64-bit offsets (a plane can pass 2^31 bytes).
+// suffices.  The step loop is unrolled by two: in the even half lane k
+// holds pair k & 1, in the odd half the other pair, so each lane's pair
+// constants (lengths, code rows, live mask) are set up once and the step
+// parity (nibble merge, dirs store, trackers, shared buffer) is static.
+// Sequence positions are counters that advance once per pair of steps;
+// the drift's chunk index and in-chunk step are counters too (no
+// division).  The mode is a template parameter: the main path's local
+// mode, with and without directions, has its own instances, every other
+// flag set runs on an instance that reads the flags at run time.
+// Characters are read straight from the [B, L] code rows; the substitution table
+// lives in shared memory and serves any alphabet up to 32 letters.  Each
+// thread writes its own dirs byte on odd steps, coalesced along the
+// lanes, through a row pointer advanced each pair of steps (a plane can
+// pass 2^31 bytes).
 //
 // Arithmetic follows the reference step for step (drifted state
 // H + gd*a, constants absorbing +2*gd, trackers drifting +2*gd per
@@ -42,6 +51,11 @@ constexpr int FREE_START_EDGES = 1;
 constexpr int LOCAL_START = 2;
 constexpr int FREE_END_EDGES = 4;
 constexpr int LOCAL_END = 8;
+constexpr int WITH_DIRS = 16;
+constexpr int RUNTIME_MODE = -1;     // flags and with_dirs read from Args
+// the main path (extend_segments): local mode, with and without dirs
+constexpr int MAIN_MODE = LOCAL_START | LOCAL_END | WITH_DIRS;
+constexpr int MAIN_SCORE_MODE = LOCAL_START | LOCAL_END;
 constexpr int PAD_S = -1;
 constexpr int PAD_T = -2;
 
@@ -68,7 +82,11 @@ struct Args {
     int with_dirs;
 };
 
-template <int LPT>
+// LPT lanes per thread, lane m of thread t is t + m * blockDim.x.  ODD:
+// blockDim.x is odd, so lanes m and m + 1 of a thread have opposite
+// parities and lane m holds, in half h, the pair lane 0 holds in half
+// h ^ (m & 1).
+template <int LPT, bool ODD, int MODE>
 __global__ void __launch_bounds__(1024)
 dp_ad_kernel(Args g) {
     extern __shared__ float smem[];
@@ -79,146 +97,224 @@ dp_ad_kernel(Args g) {
     uint8_t* sFl = reinterpret_cast<uint8_t*>(tab + g.A * g.A);  // [2][W]
 
     const int b2 = blockIdx.x;
+    const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    for (int x = threadIdx.x; x < g.A * g.A; x += nt) tab[x] = g.table[x];
+    for (int x = tid; x < g.A * g.A; x += nt) tab[x] = g.table[x];
 
-    // per-pair scalars as named registers: the pair of a lane changes
-    // with the step's parity, and a runtime index into a register array
-    // would spill it to local memory
+    const int mode = MODE == RUNTIME_MODE
+                         ? g.flags | (g.with_dirs ? WITH_DIRS : 0) : MODE;
+    const bool local_start = mode & LOCAL_START;
+    const bool free_start = mode & FREE_START_EDGES;
+    const bool corner_seed = !(local_start || free_start);
+    const bool track_local = mode & LOCAL_END;
+    const bool track_rays = !track_local && (mode & FREE_END_EDGES);
+    const bool with_dirs = mode & WITH_DIRS;
+
     const int pr0 = 2 * b2, pr1 = 2 * b2 + 1;
     const int dq0 = g.dminq[pr0], dq1 = g.dminq[pr1];
-    const int sl0 = g.s_lens[pr0], sl1 = g.s_lens[pr1];
-    const int tl0 = g.t_lens[pr0], tl1 = g.t_lens[pr1];
-    const int8_t* srow0 = g.s + (size_t)pr0 * g.LS;
-    const int8_t* srow1 = g.s + (size_t)pr1 * g.LS;
-    const int8_t* trow0 = g.t + (size_t)pr0 * g.LT;
-    const int8_t* trow1 = g.t + (size_t)pr1 * g.LT;
-    const int sltl0 = sl0 + tl0, sltl1 = sl1 + tl1;
-    const int kc0 = sl0 - tl0 - dq0, kc1 = sl1 - tl1 - dq1;
-    const bool local_start = g.flags & LOCAL_START;
-    const bool free_start = g.flags & FREE_START_EDGES;
-    const bool corner_seed = !(local_start || free_start);
-    const bool track_local = g.flags & LOCAL_END;
-    const bool track_rays = !track_local && (g.flags & FREE_END_EDGES);
+    // per half h of a pair of steps (step a = 2c + h), the pair that
+    // lane 0 of this thread holds, its lengths and its code rows
+    int slH[2], tlH[2];
+    const int8_t* sH[2];
+    const int8_t* tH[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int pr = pr0 + ((h + tid) & 1);
+        slH[h] = g.s_lens[pr];
+        tlH[h] = g.t_lens[pr];
+        sH[h] = g.s + (size_t)pr * g.LS;
+        tH[h] = g.t + (size_t)pr * g.LT;
+    }
+    const int lo0 = g.lo[pr0], hi0 = g.hi[pr0];
+    const int lo1 = g.lo[pr1], hi1 = g.hi[pr1];
 
-    int k[LPT];
-    float okf0[LPT], okf1[LPT];   // additive live-lane masks of each pair
-    float H2[LPT], H1[LPT], E[LPT], F[LPT], M0[LPT], M1[LPT];
-    int A0[LPT], A1[LPT], nib[LPT];
+    // per lane m and half h: the cell of step 2c + h is (i, j) =
+    // (c + SI + 1, c + TJ + 1) of the lane's pair; okf is the pair's
+    // additive live-lane mask
+    int SI[2][LPT], TJ[2][LPT];
+    float okf[2][LPT];
+    float H2[LPT], H1[LPT], E[LPT], F[LPT], M0[LPT], M1[LPT], sub[LPT];
+    int A0[LPT], A1[LPT], nib[LPT], sc[LPT], tc[LPT];
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-        k[m] = threadIdx.x + m * nt;
-        okf0[m] = (k[m] >= g.lo[pr0] && k[m] < g.hi[pr0]) ? 0.0f : NEGF;
-        okf1[m] = (k[m] >= g.lo[pr1] && k[m] < g.hi[pr1]) ? 0.0f : NEGF;
+        const int kk = tid + m * nt;
+        const float ok0 = (kk >= lo0 && kk < hi0) ? 0.0f : NEGF;
+        const float ok1 = (kk >= lo1 && kk < hi1) ? 0.0f : NEGF;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            // lane kk holds pair (a + kk) % 2 at step a; a + dq + kk is
+            // then even, so the halvings are exact
+            const bool p1 = (h + kk) & 1;
+            const int dq = p1 ? dq1 : dq0;
+            okf[h][m] = p1 ? ok1 : ok0;
+            SI[h][m] = ((h + dq + kk) >> 1) - 1;
+            TJ[h][m] = ((h - dq - kk) >> 1) - 1;
+        }
         // (0, 0) = 0 for anchored starts: H2 = -sub(0, 0) at its lane
-        H2[m] = (corner_seed && (k[m] == -dq0 || k[m] == -dq1))
+        H2[m] = (corner_seed && (kk == -dq0 || kk == -dq1))
                     ? -g.pad_sub : NEGF;
         H1[m] = E[m] = F[m] = M0[m] = M1[m] = NEGF;
         A0[m] = A1[m] = -1;
         nib[m] = 0;
     }
+
+    // the codes of half h, counter c, lane m (pads outside the pair)
+    auto codes = [&](int h, int c, int m, int& s, int& t) {
+        const int hh = (ODD && (m & 1)) ? h ^ 1 : h;
+        const int si = c + SI[h][m], tj = c + TJ[h][m];
+        s = (unsigned)si < (unsigned)slH[hh] ? __ldg(sH[hh] + si) : PAD_S;
+        t = (unsigned)tj < (unsigned)tlH[hh] ? __ldg(tH[hh] + tj) : PAD_T;
+    };
+    auto lookup = [&](int s, int t) {
+        return (s < 0 || t < 0) ? g.pad_sub : tab[s * g.A + t];
+    };
     __syncthreads();
 
     const size_t row_bytes = (size_t)g.B2 * W;
-    for (int a = 0; a < g.Apad; ++a) {
-        const int par = a & 1;
-        const int c = a / g.R, r = a - c * g.R;
-        const float ga0 = (g.gd != 0.0) ? (float)c * g.rgd : 0.0f;
-        const float ga = ga0 + (float)(g.gd * (double)r);
-        float* bE = sE + par * W;
-        float* bF = sF + par * W;
-        uint8_t* bFl = sFl + par * W;
-        float sub[LPT], HpGo[LPT];
+    uint8_t* drow = g.dirs + (size_t)b2 * W;
+    // the drifted zero of step a is ga0 + f32(gd * r) with chunk index
+    // cq = a / R and in-chunk step r = a % R; R is even, so r is even
+    // on even steps and wraps only after odd ones
+    int cq = 0, r = 0;
+    float ga0 = 0.0f;
+    for (int a = 0, c = 0; a < g.Apad; a += 2, ++c) {
+        const float gaH[2] = {ga0 + (float)(g.gd * (double)r),
+                              ga0 + (float)(g.gd * (double)(r + 1))};
 #pragma unroll
-        for (int m = 0; m < LPT; ++m) {
-            const int kk = k[m];
-            // lane kk of step a holds a cell of pair (a + kk) % 2
-            const bool p1 = (a + kk) & 1;
-            const int dq = p1 ? dq1 : dq0;
-            const int i = (a + dq + kk) >> 1;
-            const int j = (a - dq - kk) >> 1;
-            const int sc = (i >= 1 && i - 1 < (p1 ? sl1 : sl0))
-                               ? __ldg((p1 ? srow1 : srow0) + i - 1) : PAD_S;
-            const int tc = (j >= 1 && j - 1 < (p1 ? tl1 : tl0))
-                               ? __ldg((p1 ? trow1 : trow0) + j - 1) : PAD_T;
-            sub[m] = (sc < 0 || tc < 0) ? g.pad_sub : tab[sc * g.A + tc];
-            HpGo[m] = H1[m] + g.go;
-            bE[kk] = fmaxf(HpGo[m], E[m]);
-            bF[kk] = fmaxf(HpGo[m], F[m]);
-            bFl[kk] = (uint8_t)((E[m] >= HpGo[m] ? 1 : 0)
-                                | (F[m] >= HpGo[m] ? 2 : 0));
-        }
-        __syncthreads();
+        for (int h = 0; h < 2; ++h) {
+            float* bE = sE + h * W;
+            float* bF = sF + h * W;
+            uint8_t* bFl = sFl + h * W;
+            const float ga = gaH[h];
+            float HpGo[LPT];
 #pragma unroll
-        for (int m = 0; m < LPT; ++m) {
-            const int kk = k[m];
-            const bool p1 = (a + kk) & 1;
-            const int kr = (kk + 1 == W) ? 0 : kk + 1;   // E-pred lane
-            const int kl = (kk == 0) ? W - 1 : kk - 1;    // F-pred lane
-            // circular neighbours, NEG on the wrapped band edge: the
-            // gap carries are never damped on dead lanes, so a wrapped
-            // value would forge a band-crossing path
-            E[m] = bE[kr] + ((kk == W - 1) ? NEGF : 0.0f);
-            F[m] = bF[kl] + ((kk == 0) ? NEGF : 0.0f);
-            const int e4 = (bFl[kr] & 1) ? 4 : 0;
-            const int f8 = (bFl[kl] & 2) ? 8 : 0;
-            const float diag = H2[m] + sub[m];
-            float Hn = fmaxf(fmaxf(diag, E[m]), F[m]);
-            if (local_start) Hn = fmaxf(Hn, ga);
-            if (free_start) {
-                const bool ray = kk == -dq0 - a || kk == a - dq0
-                                 || kk == -dq1 - a || kk == a - dq1;
-                Hn = fmaxf(Hn, ray ? ga : NEGF);
+            for (int m = 0; m < LPT; ++m) {
+                const int kk = tid + m * nt;
+                codes(h, c, m, sc[m], tc[m]);
+                sub[m] = lookup(sc[m], tc[m]);
+                HpGo[m] = H1[m] + g.go;
+                bE[kk] = fmaxf(HpGo[m], E[m]);
+                bF[kk] = fmaxf(HpGo[m], F[m]);
+                bFl[kk] = (uint8_t)((E[m] >= HpGo[m] ? 1 : 0)
+                                    | (F[m] >= HpGo[m] ? 2 : 0));
             }
-            if (g.with_dirs) {
-                int d = (Hn == diag) ? 1 : ((Hn == E[m]) ? 2 : 3);
-                if (local_start && Hn == ga && diag < ga) d = 0;
-                const int byte = d + e4 + f8;
-                if (par == 0) {
-                    nib[m] = byte;
-                } else {
-                    g.dirs[(size_t)(a >> 1) * row_bytes + (size_t)b2 * W + kk]
-                        = (uint8_t)(nib[m] + 16 * byte);
+            __syncthreads();
+#pragma unroll
+            for (int m = 0; m < LPT; ++m) {
+                const int kk = tid + m * nt;
+                const int hh = (ODD && (m & 1)) ? h ^ 1 : h;
+                const int kr = (kk + 1 == W) ? 0 : kk + 1;   // E-pred lane
+                const int kl = (kk == 0) ? W - 1 : kk - 1;    // F-pred lane
+                // circular neighbours, NEG on the wrapped band edge: the
+                // gap carries are never damped on dead lanes, so a
+                // wrapped value would forge a band-crossing path
+                E[m] = bE[kr] + ((kk == W - 1) ? NEGF : 0.0f);
+                F[m] = bF[kl] + ((kk == 0) ? NEGF : 0.0f);
+                const int e4 = (bFl[kr] & 1) ? 4 : 0;
+                const int f8 = (bFl[kl] & 2) ? 8 : 0;
+                const float diag = H2[m] + sub[m];
+                float Hn = fmaxf(fmaxf(diag, E[m]), F[m]);
+                if (local_start) Hn = fmaxf(Hn, ga);
+                // the cell (si + 1, tj + 1) of the lane's pair; only the
+                // lane's own pair can meet the ray and end tests (the
+                // other pair's lanes have the other parity)
+                const int si = c + SI[h][m], tj = c + TJ[h][m];
+                if (free_start) {
+                    const bool ray = si == -1 || tj == -1;   // i or j 0
+                    Hn = fmaxf(Hn, ray ? ga : NEGF);
                 }
+                if (with_dirs) {
+                    int d = (Hn == diag) ? 1 : ((Hn == E[m]) ? 2 : 3);
+                    if (local_start && Hn == ga && diag < ga) d = 0;
+                    const int byte = d + e4 + f8;
+                    if (h == 0) {
+                        nib[m] = byte;
+                    } else {
+                        drow[kk] = (uint8_t)(nib[m] + 16 * byte);
+                    }
+                }
+                Hn = Hn + okf[h][m];
+                float tracked;
+                if (track_local) {
+                    tracked = Hn;
+                } else {
+                    const int sl = slH[hh], tl = tlH[hh];
+                    bool cond;
+                    if (track_rays) {
+                        // i == len(s) with 0 <= j <= len(t), or the
+                        // same with s and t swapped
+                        cond = (si == sl - 1
+                                && (unsigned)(tj + 1) <= (unsigned)tl)
+                               || (tj == tl - 1
+                                   && (unsigned)(si + 1) <= (unsigned)sl);
+                    } else {
+                        cond = si == sl - 1 && tj == tl - 1;
+                    }
+                    tracked = cond ? Hn : NEGF;
+                }
+                // trackers drift +2 gd per own update
+                if (h == 0) {
+                    const float Ms = M0[m] + g.two_gd;
+                    if (with_dirs && tracked > Ms) A0[m] = a;
+                    M0[m] = fmaxf(Ms, tracked);
+                } else {
+                    const float Ms = M1[m] + g.two_gd;
+                    if (with_dirs && tracked > Ms) A1[m] = a + 1;
+                    M1[m] = fmaxf(Ms, tracked);
+                }
+                H2[m] = H1[m];
+                H1[m] = Hn;
             }
-            Hn = Hn + (p1 ? okf1[m] : okf0[m]);
-            float tracked;
-            if (track_local) {
-                tracked = Hn;
-            } else if (track_rays) {
-                const bool cond =
-                    (kk == 2 * sl0 - dq0 - a && a >= sl0 && a <= sltl0)
-                    || (kk == a - dq0 - 2 * tl0 && a >= tl0 && a <= sltl0)
-                    || (kk == 2 * sl1 - dq1 - a && a >= sl1 && a <= sltl1)
-                    || (kk == a - dq1 - 2 * tl1 && a >= tl1 && a <= sltl1);
-                tracked = cond ? Hn : NEGF;
-            } else {
-                const bool cond = (a == sltl0 && kk == kc0)
-                                  || (a == sltl1 && kk == kc1);
-                tracked = cond ? Hn : NEGF;
-            }
-            // trackers drift +2 gd per own update
-            if (par == 0) {
-                const float Ms = M0[m] + g.two_gd;
-                if (g.with_dirs && tracked > Ms) A0[m] = a;
-                M0[m] = fmaxf(Ms, tracked);
-            } else {
-                const float Ms = M1[m] + g.two_gd;
-                if (g.with_dirs && tracked > Ms) A1[m] = a;
-                M1[m] = fmaxf(Ms, tracked);
-            }
-            H2[m] = H1[m];
-            H1[m] = Hn;
+        }
+        if (with_dirs) drow += row_bytes;
+        r += 2;
+        if (r == g.R) {
+            r = 0;
+            ++cq;
+            ga0 = (g.gd != 0.0) ? (float)cq * g.rgd : 0.0f;
         }
     }
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-        const size_t o = (size_t)b2 * W + k[m];
+        const size_t o = (size_t)b2 * W + tid + m * nt;
         g.Ma[o] = M0[m] - g.undrift_a;
         g.Mb[o] = M1[m] - g.undrift_b;
         g.Aa[o] = A0[m];
         g.Ab[o] = A1[m];
     }
+}
+
+// The kernel instance for W lanes (and whether it needs more than the
+// default 48 KB of shared memory); its block has W / LPT threads.
+template <int MODE>
+void (*instance(int W))(Args) {
+    if (W <= 1024) return dp_ad_kernel<1, false, MODE>;
+    if (W <= 2048) return dp_ad_kernel<2, false, MODE>;
+    return dp_ad_kernel<4, false, MODE>;
+}
+
+void (*odd_instance(int W))(Args) {
+    if (W <= 2048) return dp_ad_kernel<2, true, RUNTIME_MODE>;
+    return dp_ad_kernel<4, true, RUNTIME_MODE>;
+}
+
+int lanes_per_thread(int W) { return W <= 1024 ? 1 : (W <= 2048 ? 2 : 4); }
+
+size_t smem_bytes(int W, int A) {
+    return sizeof(float) * (4 * (size_t)W + (size_t)A * A) + 2 * (size_t)W;
+}
+
+// The instance that a launch of W lanes under `mode` runs.
+void (*pick(int W, int mode))(Args) {
+    if ((W / lanes_per_thread(W)) & 1) return odd_instance(W);
+    if (mode == MAIN_MODE) return instance<MAIN_MODE>(W);
+    if (mode == MAIN_SCORE_MODE) return instance<MAIN_SCORE_MODE>(W);
+    return instance<RUNTIME_MODE>(W);
+}
+
+bool bad_shape(int W, int A) {
+    return W < 2 || W % 2 || W > 4096 || (W > 2048 && W % 4) || A < 1
+           || A > 32;
 }
 
 }  // namespace
@@ -230,7 +326,7 @@ extern "C" const char* bst_cuda_error_string(int code) {
 // Launches the sweep over B2 plane rows on `stream` (no synchronisation)
 // and returns cudaGetLastError().  All pointers are device pointers;
 // W must be even and at most 4096 (a multiple of 4 above 2048), A at
-// most 32.
+// most 32, R and Apad even.
 extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
                          const void* t_lens, const void* dminq,
                          const void* lo, const void* hi, const void* table,
@@ -242,8 +338,7 @@ extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
                          void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (W < 2 || W % 2 || W > 4096 || (W > 2048 && W % 4) || A < 1 || A > 32
-        || R < 1)
+    if (bad_shape(W, A) || R < 2 || R % 2 || Apad % 2)
         return (int)cudaErrorInvalidValue;
     if (B2 == 0 || Apad == 0) return 0;
     Args g;
@@ -267,20 +362,16 @@ extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
     g.Ab = static_cast<int32_t*>(Ab);
     g.dirs = static_cast<uint8_t*>(dirs);
     g.with_dirs = with_dirs;
-    const size_t smem = sizeof(float) * (4 * (size_t)W + (size_t)A * A)
-                        + 2 * (size_t)W;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (W <= 1024) {
-        dp_ad_kernel<1><<<B2, W, smem, st>>>(g);
-    } else if (W <= 2048) {
-        dp_ad_kernel<2><<<B2, W / 2, smem, st>>>(g);
-    } else {
+    const size_t smem = smem_bytes(W, A);
+    void (*kernel)(Args) = pick(W, flags | (with_dirs ? WITH_DIRS : 0));
+    if (smem > 48 * 1024) {
         // 18 W + 4 A^2 bytes pass the 48 KB default above W ~2700
-        err = cudaFuncSetAttribute(dp_ad_kernel<4>,
+        err = cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err != cudaSuccess) return (int)err;
-        dp_ad_kernel<4><<<B2, W / 4, smem, st>>>(g);
     }
+    kernel<<<B2, W / lanes_per_thread(W), smem,
+             static_cast<cudaStream_t>(stream)>>>(g);
     return (int)cudaGetLastError();
 }

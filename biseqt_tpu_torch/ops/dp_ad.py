@@ -57,6 +57,11 @@ MAX_A = 32        # kernel: the A x A table lives in shared memory
 
 _NEGF = np.float32(NEG)
 
+# the mangled-name stem of the kernel instance that the main path
+# launches (extend_segments: W <= 1024, local mode with directions:
+# dp_ad_kernel<1, false, MAIN_MODE>), to find it in the SASS
+MAIN_KERNEL = "dp_ad_kernelILi1ELb0ELi26EE"
+
 
 def parity_adjusted_dmin(dmin, pair_index):
     """The per-pair band start ``dmin'`` (``dmin`` adjusted upward so

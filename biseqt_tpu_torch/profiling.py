@@ -11,14 +11,17 @@ the CUDA tensors in it before the timer stops.
 from __future__ import annotations
 
 import json
+import os
+import re
+import subprocess
 import time
 from collections import defaultdict
 
 import torch
 
 __all__ = ["Phase", "counters", "report", "gcups", "cuda_ms", "bound_ms",
-           "materialize", "HBM_BYTES_PER_S", "FP32_OPS_PER_S",
-           "INT32_OPS_PER_S"]
+           "materialize", "sass_step_loop", "cuobjdump_sass",
+           "HBM_BYTES_PER_S", "FP32_OPS_PER_S", "INT32_OPS_PER_S"]
 
 _REGISTRY = defaultdict(lambda: {"calls": 0, "seconds": 0.0, "cells": 0})
 
@@ -132,6 +135,67 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
         spans.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in spans) / reps
+
+
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_SASS_BRA = re.compile(r"\bBRA\b[^;]*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def sass_step_loop(sass: str, function: str):
+    """The step loop of a kernel in ``cuobjdump -sass`` output: the
+    instructions from the target of its back-branch to the branch, in
+    the first function whose mangled name contains ``function``.  The
+    step loop is the longest backward branch span that holds a block
+    barrier.  Returns ``{"function", "instructions", "barriers"}``
+    (a loop unrolled by n holds n barriers), or None when no such loop
+    is found."""
+    name, insns, addrs, labels = None, [], {}, {}
+    for line in sass.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            if name is not None:
+                break
+            if function in m.group(1):
+                name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            labels[m.group(1)] = len(insns)
+            continue
+        m = _SASS_INSN.search(line)
+        if m:
+            addrs[int(m.group(1), 16)] = len(insns)
+            insns.append(m.group(2).strip())
+    best = None
+    for b, insn in enumerate(insns):
+        m = _SASS_BRA.search(insn)
+        if not m:
+            continue
+        t = labels.get(m.group(1)) if m.group(1) else addrs.get(
+            int(m.group(2), 16))
+        if t is None or t > b:
+            continue
+        span = insns[t:b + 1]
+        bars = sum(1 for x in span
+                   if re.match(r"(@!?U?P\w+\s+)?BAR\.SYNC", x))
+        if bars and (best is None or len(span) > best["instructions"]):
+            best = {"function": name, "instructions": len(span),
+                    "barriers": bars}
+    return best
+
+
+def cuobjdump_sass(so_path: str) -> str:
+    """``cuobjdump -sass`` of a built library (the CUDA toolkit's
+    cuobjdump beside nvcc)."""
+    from . import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", so_path], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
 
 
 def counters() -> dict:

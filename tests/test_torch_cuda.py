@@ -29,12 +29,21 @@ from biseqt_tpu_torch.sequence import Alphabet, Sequence
 pytestmark = pytest.mark.cuda
 
 UNIT = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+# every flag set of pw._FLAGS (the main path's local mode first), and one
+# that mixes a free start with a local end
 FLAG_CASES = [
     dict(local_start=True, local_end=True),
     dict(),
     dict(free_start_edges=True, free_end_edges=True),
+    dict(local_end=True),
+    dict(local_start=True),
+    dict(free_end_edges=True),
+    dict(free_start_edges=True),
     dict(free_start_edges=True, local_end=True),
 ]
+GENERAL = np.array(
+    [[2, -1, -2, -1], [-1, 2, -1, -2], [-2, -1, 2, -1], [-1, -2, -1, 2]],
+    np.float32)
 
 
 def mk_batch(rng):
@@ -98,19 +107,19 @@ def _assert_results_equal(got, want):
         assert a.device == b.device and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("W", [128, 1536, 3072, 4096])
+@pytest.mark.parametrize("W", [128, 1026, 1536, 2052, 3072, 4096])
 @pytest.mark.parametrize("flags", FLAG_CASES)
 def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
-    """Every lane layout of the kernel (one, two and four lanes per
-    thread; above 48 KB of shared memory at W 3072 and 4096), every
-    mode, unit and fractional general scores."""
+    """Every instance of the kernel: one, two and four lanes per thread,
+    with an even and an odd thread count (W 1026 and 2052: a thread's
+    lanes alternate parity), above 48 KB of shared memory at W 3072 and
+    4096; every flag set, the main path's local mode on its own
+    instances with and without directions, the others on the run-time
+    instance; unit and fractional general scores."""
     args, w_eff = mk_batch(rng)
     args = [torch.as_tensor(x, device=card) for x in args]
     args[4] = args[4] + 128 - W          # keep the band around the diagonal
-    general = np.array(
-        [[2, -1, -2, -1], [-1, 2, -1, -2], [-2, -1, 2, -1], [-1, -2, -1, 2]],
-        np.float32)
-    for subst, go, ge in ((UNIT, -2.0, -1.0), (general, -3.0, -0.5)):
+    for subst, go, ge in ((UNIT, -2.0, -1.0), (GENERAL, -3.0, -0.5)):
         kw = dict(W=W, subst=subst, go=go, ge=ge,
                   flags=ModeFlags(**flags),
                   w_eff=torch.as_tensor(w_eff, device=card), r_chunk=16,
@@ -124,6 +133,37 @@ def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
             assert dp_ad.LAUNCHES == n0 + 1
             _assert_results_equal(got, want)
         assert float(got.score.max()) > 60
+
+
+@pytest.mark.parametrize("r_chunk", [6, 16, 128])
+@pytest.mark.parametrize("flags", FLAG_CASES[:3])
+def test_dp_ad_kernel_odd_pairs_and_chunk_wrap(rng, card, flags, r_chunk):
+    """Seven pairs (the last plane row holds one real pair and a pad),
+    the drift's chunk index wrapping mid-launch (every 6, 16 or 128 of
+    the 342-384 steps), zero and fractional gap extension."""
+    B, L, W = 7, 170, 256
+    ss = rng.integers(0, 4, (B, L)).astype(np.int8)
+    ts = ss.copy()
+    m = rng.random((B, L)) < 0.12
+    ts[m] = (ts[m] + 1 + rng.integers(0, 3, m.sum())) % 4
+    s_lens = np.array([170, 160, 170, 101, 170, 3, 170], np.int32)
+    t_lens = np.array([168, 170, 150, 170, 99, 170, 170], np.int32)
+    dmin = np.array([-128, -127, -100, -150, -64, -160, -129], np.int32)
+    w_eff = np.array([255, 200, 190, 255, 128, 255, 254], np.int32)
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    for subst, go, ge in ((GENERAL, -3.0, -0.5), (UNIT, -2.0, 0.0)):
+        kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
+                  w_eff=torch.as_tensor(w_eff, device=card),
+                  r_chunk=r_chunk, device=card)
+        for with_dirs in (True, False):
+            n0 = dp_ad.LAUNCHES
+            got = dp_ad.banded_dp_ad(*args, with_dirs=with_dirs, **kw)
+            assert dp_ad.LAUNCHES == n0 + 1
+            want = dp_ad.banded_dp_ad_reference(*args, with_dirs=with_dirs,
+                                                **kw)
+            _assert_results_equal(got, want)
+        assert got.score.shape == (B,) and float(got.score.max()) > 100
 
 
 def _walk_plane(rng, kind, B2, Rp, W):
