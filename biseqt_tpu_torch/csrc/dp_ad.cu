@@ -29,8 +29,13 @@
 // the drift's chunk index and in-chunk step are counters too (no
 // division).  The mode is a template parameter: the main path's local
 // mode, with and without directions, has its own instances, every other
-// flag set runs on an instance that reads the flags at run time.
-// Characters are read straight from the [B, L] code rows; the substitution table
+// flag set runs on an instance that reads the flags at run time.  At
+// the end of step a, after its dependent chain, the substitution score
+// of step a + 1 is looked up from codes loaded at the end of step a - 1,
+// and the codes of step a + 2 are loaded, so no load or lookup sits
+// between a step's publish and its barrier and each load has a whole
+// step to arrive.  Characters are read straight from the [B, L] code
+// rows; the substitution table
 // lives in shared memory and serves any alphabet up to 32 letters.  Each
 // thread writes its own dirs byte on odd steps, coalesced along the
 // lanes, through a row pointer advanced each pair of steps (a plane can
@@ -169,6 +174,13 @@ dp_ad_kernel(Args g) {
         return (s < 0 || t < 0) ? g.pad_sub : tab[s * g.A + t];
     };
     __syncthreads();
+    // the substitution score of step 0 and the codes of step 1
+#pragma unroll
+    for (int m = 0; m < LPT; ++m) {
+        codes(0, 0, m, sc[m], tc[m]);
+        sub[m] = lookup(sc[m], tc[m]);
+        codes(1, 0, m, sc[m], tc[m]);
+    }
 
     const size_t row_bytes = (size_t)g.B2 * W;
     uint8_t* drow = g.dirs + (size_t)b2 * W;
@@ -190,8 +202,6 @@ dp_ad_kernel(Args g) {
 #pragma unroll
             for (int m = 0; m < LPT; ++m) {
                 const int kk = tid + m * nt;
-                codes(h, c, m, sc[m], tc[m]);
-                sub[m] = lookup(sc[m], tc[m]);
                 HpGo[m] = H1[m] + g.go;
                 bE[kk] = fmaxf(HpGo[m], E[m]);
                 bF[kk] = fmaxf(HpGo[m], F[m]);
@@ -265,6 +275,15 @@ dp_ad_kernel(Args g) {
                 H2[m] = H1[m];
                 H1[m] = Hn;
             }
+            // off the chain: the substitution score of the next step,
+            // from codes loaded a step ago, and the codes of the step
+            // after it (step a + h + 2: half h, counter c + 1), which
+            // have a whole step to arrive
+#pragma unroll
+            for (int m = 0; m < LPT; ++m) {
+                sub[m] = lookup(sc[m], tc[m]);
+                codes(h, c + 1, m, sc[m], tc[m]);
+            }
         }
         if (with_dirs) drow += row_bytes;
         r += 2;
@@ -321,6 +340,34 @@ bool bad_shape(int W, int A) {
 
 extern "C" const char* bst_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// The plane rows that one launch of the main path's instance (local
+// mode, with or without directions) keeps resident on `device` at once:
+// its blocks per SM at W lanes and A letters, times the SMs.
+extern "C" int bst_dp_ad_resident_rows(int W, int A, int with_dirs,
+                                       int device, int* rows) {
+    if (bad_shape(W, A)) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, blocks = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return (int)err;
+    void (*kernel)(Args) =
+        pick(W, with_dirs ? MAIN_MODE : MAIN_SCORE_MODE);
+    const size_t smem = smem_bytes(W, A);
+    if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, W / lanes_per_thread(W), smem);
+    if (err != cudaSuccess) return (int)err;
+    *rows = blocks * sms;
+    return 0;
 }
 
 // Launches the sweep over B2 plane rows on `stream` (no synchronisation)

@@ -10,9 +10,11 @@ direction plane, the walk kernel (:mod:`.ops.walk`) turns it into a
 2-bit op trace on the device, and the C++ host tier compacts the
 trace into MSID transcripts (:func:`.native.compact_sweep_ops_t`).
 
-Launch geometry (window split, cuts, shape buckets, per-launch caps,
-batch padding) is the JAX package's, so both packages launch the same
-problems and their results can be compared exactly.
+Launch geometry (window split, cuts, shape buckets, batch padding) is
+the JAX package's, so both packages solve the same problems and their
+results can be compared exactly.  The per-launch caps are the card's
+(:data:`LAUNCH_BYTES`, :func:`plan_launches`); which pairs share a
+launch changes no result.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from . import native
 from .ops.banded_dp import ModeFlags, resolve_device
-from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
+from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin, resident_rows
 from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
 
@@ -36,9 +38,16 @@ __all__ = ["extend_segments", "cut_segment", "plan_launches",
 PAD_RADIUS = 16   # diagonals on each side
 PAD_A = 512       # antidiagonals on each end
 
-# per-launch budget of sequence characters plus, with transcripts, dirs
-# plane bytes (sized for the JAX package's TPU: see ROADMAP)
-STREAM_CHAR_BUDGET = 400_000_000
+# Per-launch budget of device memory: sequence characters plus, with
+# transcripts, the dirs plane.  The JAX package's budget (4e8 bytes) was
+# sized for a TPU's memory; on an 80 GB H100 it cut the smoke's group of
+# 2048 10 kbp segments into five launches of K1, the last with 44 plane
+# rows for most of a full launch's time, since K1's time per launch
+# hardly falls below one wave of resident rows.  A tenth of the card
+# leaves room for the walk's trace and the next launch's inputs; on the
+# card a launch also holds no more rows than the kernel keeps resident
+# (plan_launches).
+LAUNCH_BYTES = 8 << 30
 
 
 def _bucket(n, mini=128):
@@ -98,10 +107,18 @@ def cut_segment(seg, len_s, len_t, pad_radius=PAD_RADIUS, pad_a=PAD_A):
     return (i_lo, i_hi, j_lo, j_hi, d_lo - off, d_hi - off)
 
 
-def plan_launches(cut, with_transcripts: bool):
+def _pad_batch(n: int, with_transcripts: bool) -> int:
+    """The bucketed batch size a launch of ``n`` pairs is padded to."""
+    return _bucket(n, mini=2 if with_transcripts else 8)
+
+
+def plan_launches(cut, with_transcripts: bool, resident_rows=None):
     """The launches of a list of cuts: ``(idxs, LS, LT, W)`` per launch.
     Cuts are grouped by bucketed shape, and each group is cut into
-    launches under the per-launch budget."""
+    launches under the per-launch memory budget and, given
+    ``resident_rows(W)`` (the plane rows the card keeps resident at band
+    width W: ``dp_ad.resident_rows``), into launches whose padded batch
+    fits those rows.  Which pairs share a launch changes no result."""
     groups: Dict[tuple, List[int]] = {}
     for idx, c in enumerate(cut):
         key = (_bucket(c[1] - c[0]), _bucket(c[3] - c[2]),
@@ -114,7 +131,14 @@ def plan_launches(cut, with_transcripts: bool):
             # the dirs plane (~(LS + LT) * W / 4 bytes per pair)
             # dominates the launch's memory
             per_pair += (LS + LT + 2 * W) * W // 4
-        cap = max(2, 2 * (STREAM_CHAR_BUDGET // max(per_pair, 1)))
+        cap = max(2, LAUNCH_BYTES // max(per_pair, 1))
+        if resident_rows is not None:
+            # two pairs a plane row: the largest batch whose padded size
+            # fits the rows the card keeps resident
+            fit = max(2, 2 * resident_rows(W))
+            cap = min(cap, fit)
+            while cap > 2 and _pad_batch(cap, with_transcripts) > fit:
+                cap -= 1
         for k in range(0, len(idxs), cap):
             launches.append((idxs[k:k + cap], LS, LT, W))
     return launches
@@ -126,7 +150,7 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
     length-1 pairs to a bucketed size, each pair's band is the top
     ``min(width, W - 1)`` diagonals of ``[dmin, dmin + W)``, and
     ``dminq`` holds the parity-adjusted band starts the walk reads."""
-    n_pad = _bucket(len(idxs), mini=2 if with_transcripts else 8)
+    n_pad = _pad_batch(len(idxs), with_transcripts)
     s_codes = np.zeros((n_pad, LS), np.int8)
     t_codes = np.zeros((n_pad, LT), np.int8)
     s_lens = np.ones((n_pad,), np.int32)
@@ -211,8 +235,13 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
 
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
+    # on the card a launch holds no more plane rows than K1 keeps resident
+    rows = None
+    if device.type == "cuda":
+        rows = lambda W: resident_rows(W, subst.shape[0], with_transcripts,
+                                       device)
     with Phase("pipeline.extend", cells=total_cells):
-        for idxs, LS, LT, W in plan_launches(cut, with_transcripts):
+        for idxs, LS, LT, W in plan_launches(cut, with_transcripts, rows):
             n = len(idxs)
             x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
                               with_transcripts)

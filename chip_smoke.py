@@ -20,7 +20,9 @@ Phases, each of which exits non-zero on failure:
    process each, all at once) and the C++ host tier from the
    checkout;
 2. runs the main path with the kernels' launch counters set to 0, and
-   requires every kernel to have been launched once per launch;
+   requires every kernel to have been launched once per launch of the
+   pipeline's plan (a launch holds no more plane rows than K1 keeps
+   resident on the card);
 3. rescores every transcript with affine gaps in numpy (exactly its
    score) and requires transcripts to cover most of each block;
 4. on one full launch of the main path, holds the DP kernel (scores, end
@@ -31,7 +33,10 @@ Phases, each of which exits non-zero on failure:
 5. times each kernel and its plain twin with CUDA events at that
    launch's shape, and the replay guard of ``extend_segments`` (the
    trace's moves against the end cells, on the card) as called and
-   replayed from a CUDA graph;
+   replayed from a CUDA graph; times K1 on that launch's inputs tiled
+   or sliced to 44-1024 plane rows (its time against the rows in
+   flight), and counts the SASS instructions of K1's step loop (the
+   main path's instance, by ``cuobjdump -sass``);
 6. runs the pairwise path, counting the row kernel's launches: the
    100 kbp DNA pair (10% substitutions, short indels within +-50
    diagonals, band (-250, 250)) as B_GLOBAL, B_LOCAL and B_OVERLAP, and
@@ -283,10 +288,15 @@ def main():
     narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
     counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
     cut = [pipeline.cut_segment(seg, len(S), len(T)) for seg in segments]
-    launches = pipeline.plan_launches(cut, True)
+    # extend_segments' plan: a launch holds no more plane rows than K1
+    # keeps resident
+    rows = lambda W: dp_ad.resident_rows(W, 4, True, dev)
+    launches = pipeline.plan_launches(cut, True, rows)
     n_launches = len(launches) + len(pipeline.plan_launches(cut[:NARROW],
-                                                             True))
-    print("launches: %d planned, %s counted" % (n_launches, counts))
+                                                             True, rows))
+    print("launches: %d planned (K1 keeps %d plane rows resident at W %d),"
+          " %s counted" % (n_launches, rows(launches[0][3]), launches[0][3],
+                           counts))
     if any(c != n_launches for c in counts.values()):
         fail("a kernel was not launched once per launch: %s" % counts)
     cells = sum(seg["band_cells"] for seg in out)
@@ -429,8 +439,8 @@ def main():
 
     # K1 against the plane rows in flight: the full launch's inputs
     # tiled or sliced to each row count, at the same LS, LT, W and Apad
-    for rows in ROWS_IN_FLIGHT:
-        pairs = 2 * rows
+    for n_rows in ROWS_IN_FLIGHT:
+        pairs = 2 * n_rows
 
         def tile(v):
             reps = (-(-pairs // len(v)),) + (1,) * (v.dim() - 1)
@@ -440,7 +450,7 @@ def main():
         tkw = dict(dkw, w_eff=tile(on["w_eff"]))
         rows_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*targs, **tkw), 3)
         print("dp_ad rows in flight: %d plane rows (%d pairs), %.3f ms,"
-              " %.5f ms per row" % (rows, pairs, rows_ms, rows_ms / rows))
+              " %.5f ms per row" % (n_rows, pairs, rows_ms, rows_ms / n_rows))
         del targs, tkw
     # K1's step loop in SASS: instructions from the back-branch's target
     # to the branch, per block barrier (one barrier per step)
@@ -548,9 +558,16 @@ def main():
                        int(res.end_j[0]), banded=True, dmax=dmax,
                        flags=kw["flags"])
         t2 = time.perf_counter()
-        print("%s: K4 score-only %.3f ms, with directions %.3f ms; plane"
-              " to the host %.1f ms (%.1f MB), host walk %.1f ms"
-              % (name, solve_ms, dirs_ms, (t1 - t0) * 1e3, plane.nbytes / 1e6,
+        # K4 with directions reads the inputs once and writes the plane
+        # (a byte per band cell), score and end cell once
+        pair_bound, pair_bound_by = bound_ms(
+            nbytes(*on, *res), DP_ROW_OPS_PER_CELL * plane.size,
+            FP32_OPS_PER_S)
+        print("%s: K4 score-only %.3f ms, with directions %.3f ms (bound"
+              " %.4f ms, %s, %d band cells); plane to the host %.1f ms (%.1f"
+              " MB), host walk %.1f ms"
+              % (name, solve_ms, dirs_ms, pair_bound, pair_bound_by,
+                 plane.size, (t1 - t0) * 1e3, plane.nbytes / 1e6,
                  (t2 - t1) * 1e3))
 
     # the row kernel against its twin on the Aligner's own inputs, with
@@ -694,7 +711,7 @@ def main():
     wide_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
     wide_cpu = pipeline.extend_segments(Sw, Tw, wseg, device="cpu", **ekw)
     wcut = [pipeline.cut_segment(seg, WIDE_LEN, WIDE_LEN) for seg in wseg]
-    (widx, wLS, wLT, wW), = pipeline.plan_launches(wcut, True)
+    (widx, wLS, wLT, wW), = pipeline.plan_launches(wcut, True, rows)
     print("wide band: W %d, launches %s, score %r, %d ops from (%d, %d)"
           % (wW, wide_counts, wide[0]["score"], len(wide[0]["transcript"]),
              wide[0]["origin_start"], wide[0]["mutate_start"]))

@@ -8,14 +8,17 @@ up-front error when the C++ tier is missing.  Tolerance is exact:
 scores, transcripts, start cells and source indices equal.
 """
 
+import numpy as np
 import pytest
+import torch
 
 import biseqt_tpu.pipeline as ref_pipeline
 from biseqt_tpu.blot import WordBlot
 from biseqt_tpu.pw import Alignment
-from biseqt_tpu.sequence import Alphabet
+from biseqt_tpu.sequence import Alphabet, Sequence
 from biseqt_tpu.stochastics import MutationProcess, rand_seq
 from biseqt_tpu_torch import native, pipeline
+from biseqt_tpu_torch.ops import dp_ad
 from biseqt_tpu_torch.sequence import from_reference
 from test_torch_cuda import UNIT
 
@@ -109,12 +112,99 @@ def test_extend_segments_transcripts_native_unavailable(rng, monkeypatch):
     assert pipeline.extend_segments(S, S, [seg], device="cpu")[0]["score"] > 0
 
 
+def _smoke_cuts(n):
+    """``n`` cuts of the smoke's shape: 11 kbp cutouts (LS = LT = 12288
+    after bucketing), band 133 (W 256)."""
+    return [(0, 11_024, 0, 11_020, -66 + k % 3, 66 + k % 3)
+            for k in range(n)]
+
+
+@pytest.mark.parametrize("rows,sizes", [
+    (None, [2048]),            # the CPU: the memory budget alone
+    (528, [1024, 1024]),       # 4 blocks of 256 threads on 132 SMs
+    (660, [1024, 1024]),       # 5 blocks: 1320 pairs pad past 1024
+    (1056, [2048]),            # 8 blocks: the whole group resident
+    (100, [192] * 10 + [128]),  # 193-200 pairs pad to 256
+])
+def test_plan_launches_fills_the_resident_rows(rows, sizes):
+    """The smoke's 2048-pair group goes in as few launches as the rows
+    the card keeps resident allow, each launch's padded batch within
+    them; without a card the memory budget alone cuts it (8 GiB: 5267
+    pairs with their dirs planes)."""
+    resident = None if rows is None else (lambda W: rows)
+    launches = pipeline.plan_launches(_smoke_cuts(2048), True, resident)
+    assert [len(idxs) for idxs, *_ in launches] == sizes
+    assert {launch[1:] for launch in launches} == {(12288, 12288, 256)}
+    if rows is not None:
+        assert all(pipeline._pad_batch(n, True) <= 2 * rows for n in sizes)
+    assert sorted(i for idxs, *_ in launches for i in idxs) == list(
+        range(2048))
+
+
+def test_extend_segments_split_into_launches_changes_nothing(
+        rng, monkeypatch):
+    """Scores, transcripts and start cells do not depend on how the
+    segments are split into launches: a memory budget small enough to
+    put two pairs in each launch against the default, one launch."""
+    s_parts, t_parts, segments = [], [], []
+    s_pos = t_pos = 0
+    for k in range(5):         # five planted homologous blocks of 200 bp
+        core = rng.integers(0, 4, 200)
+        mut = core.copy()
+        hit = rng.random(200) < 0.1
+        mut[hit] = (mut[hit] + 1 + rng.integers(0, 3, hit.sum())) % 4
+        gap_s, gap_t = 60 + 20 * k, 90 - 10 * k
+        s_parts += [rng.integers(0, 4, gap_s), core]
+        t_parts += [rng.integers(0, 4, gap_t), mut]
+        i0, j0 = s_pos + gap_s, t_pos + gap_t
+        segments.append({"segment": ((i0 - j0 - 8, i0 - j0 + 8),
+                                     (i0 + j0, i0 + j0 + 400))})
+        s_pos, t_pos = i0 + 200, j0 + 200
+    S2 = Sequence(A4, np.concatenate(s_parts))
+    T2 = Sequence(A4, np.concatenate(t_parts))
+    calls = []
+    real = pipeline.banded_dp_ad
+    monkeypatch.setattr(pipeline, "banded_dp_ad",
+                        lambda *a, **k: calls.append(len(a[0])) or real(
+                            *a, **k))
+    kw = dict(subst=UNIT, go_score=-3.0, ge_score=-1.0,
+              with_transcripts=True, _r_chunk=16, device="cpu")
+    port = (from_reference(S2), from_reference(T2), segments)
+    want = pipeline.extend_segments(*port, **kw)
+    n_default = len(calls)
+    monkeypatch.setattr(pipeline, "LAUNCH_BYTES", 1)
+    got = pipeline.extend_segments(*port, **kw)
+    assert len(calls) - n_default > n_default     # more, smaller launches
+    assert got == want
+    _rescores(S2, T2, got)
+    assert all(seg["score"] > 100 for seg in got)
+
+
+def test_resident_rows_asks_the_card(rng, monkeypatch):
+    """``resident_rows`` reads the card and refuses the CPU; on the CPU
+    ``extend_segments`` never asks it (the memory budget alone plans its
+    launches)."""
+    with pytest.raises(ValueError, match="asks the card"):
+        dp_ad.resident_rows(256, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="none is present"):
+        dp_ad.resident_rows(256)
+
+    def refuse(*a, **k):
+        raise AssertionError("resident_rows called on the CPU path")
+
+    monkeypatch.setattr(pipeline, "resident_rows", refuse)
+    S, T, segments = _two_cores(rng)
+    out = pipeline.extend_segments(from_reference(S), from_reference(T),
+                                   segments, subst=UNIT,
+                                   with_transcripts=True, device="cpu")
+    assert len(out) == len(segments) and all(s["score"] > 0 for s in out)
+
+
 def test_extend_segments_band_above_2048_matches():
     """A segment whose padded band buckets to W 3072, past the 2048 lanes
     the port's K1 once took: scores, transcript and start cells equal
     the JAX package's (its default engine), and the score is 13.0."""
-    import numpy as np
-
     rng = np.random.default_rng(0)
     S, T = rand_seq(A4, 1200, rng=rng), rand_seq(A4, 1200, rng=rng)
     segments = [{"segment": ((-1100, 1100), (1200, 1300))}]
