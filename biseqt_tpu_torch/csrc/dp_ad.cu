@@ -34,12 +34,18 @@
 // of step a + 1 is looked up from codes loaded at the end of step a - 1,
 // and the codes of step a + 2 are loaded, so no load or lookup sits
 // between a step's publish and its barrier and each load has a whole
-// step to arrive.  Characters are read straight from the [B, L] code
-// rows; the substitution table
-// lives in shared memory and serves any alphabet up to 32 letters.  Each
-// thread writes its own dirs byte on odd steps, coalesced along the
-// lanes, through a row pointer advanced each pair of steps (a plane can
-// pass 2^31 bytes).
+// step to arrive (the loads are volatile: left to itself the compiler
+// sinks them to their use).  Characters are read straight from the
+// [B, L] code rows; the substitution table lives in shared memory,
+// serves any alphabet up to 32 letters and holds the pad's score in an
+// extra slot, so the lookup needs no branch.  Each thread writes its
+// own dirs byte on odd steps, coalesced along the lanes, through a row
+// pointer advanced each pair of steps (a plane can pass 2^31 bytes).
+//
+// How many blocks run at once sets the step's pace: with one block per
+// SM the chain's latency binds, with the four that fit at W = 256
+// (registers limit them) issue does.  bst_dp_ad_resident_rows reports
+// the resident blocks, so the caller can put a whole wave in a launch.
 //
 // Arithmetic follows the reference step for step (drifted state
 // H + gd*a, constants absorbing +2*gd, trackers drifting +2*gd per
@@ -87,6 +93,18 @@ struct Args {
     int with_dirs;
 };
 
+// *p where `in` holds, else `pad`; no branch.  The load is volatile so
+// that the compiler issues it where the code places it, a step before
+// its use, and does not sink it past the barrier to that use.
+__device__ __forceinline__ int load_code(const int8_t* p, bool in, int pad) {
+    int v = pad;
+    asm volatile(
+        "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+        "@q ld.global.nc.s8 %0, [%1];\n\t}"
+        : "+r"(v) : "l"(p), "r"((unsigned)in));
+    return v;
+}
+
 // LPT lanes per thread, lane m of thread t is t + m * blockDim.x.  ODD:
 // blockDim.x is odd, so lanes m and m + 1 of a thread have opposite
 // parities and lane m holds, in half h, the pair lane 0 holds in half
@@ -98,13 +116,15 @@ dp_ad_kernel(Args g) {
     const int W = g.W;
     float* sE = smem;                    // [2][W]
     float* sF = sE + 2 * W;              // [2][W]
-    float* tab = sF + 2 * W;             // [A * A]
-    uint8_t* sFl = reinterpret_cast<uint8_t*>(tab + g.A * g.A);  // [2][W]
+    float* tab = sF + 2 * W;             // [A * A + 1]: the pad's last
+    const int pad_slot = g.A * g.A;
+    uint8_t* sFl = reinterpret_cast<uint8_t*>(tab + pad_slot + 1);  // [2][W]
 
     const int b2 = blockIdx.x;
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    for (int x = tid; x < g.A * g.A; x += nt) tab[x] = g.table[x];
+    for (int x = tid; x < pad_slot; x += nt) tab[x] = g.table[x];
+    if (tid == 0) tab[pad_slot] = g.pad_sub;
 
     const int mode = MODE == RUNTIME_MODE
                          ? g.flags | (g.with_dirs ? WITH_DIRS : 0) : MODE;
@@ -167,11 +187,11 @@ dp_ad_kernel(Args g) {
     auto codes = [&](int h, int c, int m, int& s, int& t) {
         const int hh = (ODD && (m & 1)) ? h ^ 1 : h;
         const int si = c + SI[h][m], tj = c + TJ[h][m];
-        s = (unsigned)si < (unsigned)slH[hh] ? __ldg(sH[hh] + si) : PAD_S;
-        t = (unsigned)tj < (unsigned)tlH[hh] ? __ldg(tH[hh] + tj) : PAD_T;
+        s = load_code(sH[hh] + si, (unsigned)si < (unsigned)slH[hh], PAD_S);
+        t = load_code(tH[hh] + tj, (unsigned)tj < (unsigned)tlH[hh], PAD_T);
     };
     auto lookup = [&](int s, int t) {
-        return (s < 0 || t < 0) ? g.pad_sub : tab[s * g.A + t];
+        return tab[(s < 0 || t < 0) ? pad_slot : s * g.A + t];
     };
     __syncthreads();
     // the substitution score of step 0 and the codes of step 1
@@ -320,7 +340,8 @@ void (*odd_instance(int W))(Args) {
 int lanes_per_thread(int W) { return W <= 1024 ? 1 : (W <= 2048 ? 2 : 4); }
 
 size_t smem_bytes(int W, int A) {
-    return sizeof(float) * (4 * (size_t)W + (size_t)A * A) + 2 * (size_t)W;
+    return sizeof(float) * (4 * (size_t)W + (size_t)A * A + 1)
+           + 2 * (size_t)W;
 }
 
 // The instance that a launch of W lanes under `mode` runs.
