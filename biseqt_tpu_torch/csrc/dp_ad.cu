@@ -44,8 +44,9 @@
 //
 // How many blocks run at once sets the step's pace: with one block per
 // SM the chain's latency binds, with the four that fit at W = 256
-// (registers limit them) issue does.  bst_dp_ad_resident_rows reports
-// the resident blocks, so the caller can put a whole wave in a launch.
+// (registers limit them) issue does.  A launch's time per plane row
+// still falls past one wave of resident blocks (measured up to four
+// waves), so the caller puts as many rows in a launch as memory allows.
 //
 // Arithmetic follows the reference step for step (drifted state
 // H + gd*a, constants absorbing +2*gd, trackers drifting +2*gd per
@@ -361,34 +362,6 @@ bool bad_shape(int W, int A) {
 
 extern "C" const char* bst_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
-}
-
-// The plane rows that one launch of the main path's instance (local
-// mode, with or without directions) keeps resident on `device` at once:
-// its blocks per SM at W lanes and A letters, times the SMs.
-extern "C" int bst_dp_ad_resident_rows(int W, int A, int with_dirs,
-                                       int device, int* rows) {
-    if (bad_shape(W, A)) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    int sms = 0, blocks = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return (int)err;
-    void (*kernel)(Args) =
-        pick(W, with_dirs ? MAIN_MODE : MAIN_SCORE_MODE);
-    const size_t smem = smem_bytes(W, A);
-    if (smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, W / lanes_per_thread(W), smem);
-    if (err != cudaSuccess) return (int)err;
-    *rows = blocks * sms;
-    return 0;
 }
 
 // Launches the sweep over B2 plane rows on `stream` (no synchronisation)

@@ -38,7 +38,6 @@ on the CPU.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -46,7 +45,7 @@ import torch
 from .banded_dp import NEG, DPResult, ModeFlags, on_device, resolve_device
 
 __all__ = ["banded_dp_ad", "banded_dp_ad_reference", "parity_adjusted_dmin",
-           "live_nibbles", "resident_rows", "LAUNCHES"]
+           "live_nibbles", "LAUNCHES"]
 
 # CUDA kernel launches made by banded_dp_ad (never by the plain twin)
 LAUNCHES = 0
@@ -368,38 +367,7 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
     return Ma, Mb, Aa, Ab, dirs
 
 
-@functools.lru_cache(maxsize=None)
-def _resident_rows(W: int, A: int, with_dirs: bool, index: int) -> int:
-    from .. import _build
-
-    lib = _build.load("dp_ad", _declare)
-    rows = ctypes.c_int(0)
-    rc = lib.bst_dp_ad_resident_rows(W, A, int(with_dirs), index,
-                                     ctypes.byref(rows))
-    _build.check(lib, rc, "dp_ad occupancy")
-    return rows.value
-
-
-def resident_rows(W: int, A: int = 4, with_dirs: bool = True,
-                  device="cuda") -> int:
-    """The plane rows (pairs of pairs) that one launch of the main
-    path's kernel instance keeps resident on the card at once, at band
-    width ``W`` and an alphabet of ``A`` letters: its blocks per SM by
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, times the SMs.
-    Needs a CUDA ``device``."""
-    device = resolve_device(device)
-    if device.type != "cuda":
-        raise ValueError("resident_rows asks the card: device %s" % device)
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    return _resident_rows(int(W), int(A), bool(with_dirs), index)
-
-
 def _declare(lib):
-    lib.bst_dp_ad_resident_rows.restype = ctypes.c_int
-    lib.bst_dp_ad_resident_rows.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int)]
     lib.bst_dp_ad.restype = ctypes.c_int
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bst_dp_ad.argtypes = [

@@ -12,9 +12,8 @@ trace into MSID transcripts (:func:`.native.compact_sweep_ops_t`).
 
 Launch geometry (window split, cuts, shape buckets, batch padding) is
 the JAX package's, so both packages solve the same problems and their
-results can be compared exactly.  The per-launch caps are the card's
-(:data:`LAUNCH_BYTES`, :func:`plan_launches`); which pairs share a
-launch changes no result.
+results can be compared exactly.  The per-launch cap is the card's
+(:data:`LAUNCH_BYTES`); which pairs share a launch changes no result.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import torch
 
 from . import native
 from .ops.banded_dp import ModeFlags, resolve_device
-from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin, resident_rows
+from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
 
@@ -42,11 +41,11 @@ PAD_A = 512       # antidiagonals on each end
 # transcripts, the dirs plane.  The JAX package's budget (4e8 bytes) was
 # sized for a TPU's memory; on an 80 GB H100 it cut the smoke's group of
 # 2048 10 kbp segments into five launches of K1, the last with 44 plane
-# rows for most of a full launch's time, since K1's time per launch
-# hardly falls below one wave of resident rows.  A tenth of the card
-# leaves room for the walk's trace and the next launch's inputs; on the
-# card a launch also holds no more rows than the kernel keeps resident
-# (plan_launches).
+# rows for most of a full launch's time.  K1's time per plane row falls
+# as a launch holds more rows, past one wave of resident blocks too (on
+# an H100 at W 256: 528 rows 13.3 ms, 1056 rows 23.0-23.5 ms, 2048 rows
+# 42.8 ms), so memory alone caps a launch.  A tenth of the card leaves
+# room for the walk's trace and the next launch's inputs.
 LAUNCH_BYTES = 8 << 30
 
 
@@ -107,18 +106,23 @@ def cut_segment(seg, len_s, len_t, pad_radius=PAD_RADIUS, pad_a=PAD_A):
     return (i_lo, i_hi, j_lo, j_hi, d_lo - off, d_hi - off)
 
 
-def _pad_batch(n: int, with_transcripts: bool) -> int:
-    """The bucketed batch size a launch of ``n`` pairs is padded to."""
-    return _bucket(n, mini=2 if with_transcripts else 8)
+def _batch_mini(with_transcripts: bool) -> int:
+    """The smallest bucket a launch's batch is padded to."""
+    return 2 if with_transcripts else 8
 
 
-def plan_launches(cut, with_transcripts: bool, resident_rows=None):
+def _bucket_floor(n, mini):
+    """The largest bucket of :func:`_bucket`'s grid at most ``n`` (``mini``
+    if none is)."""
+    step = max(mini, 1 << (max(int(n).bit_length(), 2) - 2))
+    return max(mini, n // step * step)
+
+
+def plan_launches(cut, with_transcripts: bool):
     """The launches of a list of cuts: ``(idxs, LS, LT, W)`` per launch.
     Cuts are grouped by bucketed shape, and each group is cut into
-    launches under the per-launch memory budget and, given
-    ``resident_rows(W)`` (the plane rows the card keeps resident at band
-    width W: ``dp_ad.resident_rows``), into launches whose padded batch
-    fits those rows.  Which pairs share a launch changes no result."""
+    launches whose padded batch fits the per-launch memory budget.
+    Which pairs share a launch changes no result."""
     groups: Dict[tuple, List[int]] = {}
     for idx, c in enumerate(cut):
         key = (_bucket(c[1] - c[0]), _bucket(c[3] - c[2]),
@@ -131,14 +135,10 @@ def plan_launches(cut, with_transcripts: bool, resident_rows=None):
             # the dirs plane (~(LS + LT) * W / 4 bytes per pair)
             # dominates the launch's memory
             per_pair += (LS + LT + 2 * W) * W // 4
-        cap = max(2, LAUNCH_BYTES // max(per_pair, 1))
-        if resident_rows is not None:
-            # two pairs a plane row: the largest batch whose padded size
-            # fits the rows the card keeps resident
-            fit = max(2, 2 * resident_rows(W))
-            cap = min(cap, fit)
-            while cap > 2 and _pad_batch(cap, with_transcripts) > fit:
-                cap -= 1
+        # a launch is padded to a bucketed batch (launch_inputs): the
+        # largest bucket within the budget
+        cap = _bucket_floor(LAUNCH_BYTES // max(per_pair, 1),
+                            _batch_mini(with_transcripts))
         for k in range(0, len(idxs), cap):
             launches.append((idxs[k:k + cap], LS, LT, W))
     return launches
@@ -150,7 +150,7 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
     length-1 pairs to a bucketed size, each pair's band is the top
     ``min(width, W - 1)`` diagonals of ``[dmin, dmin + W)``, and
     ``dminq`` holds the parity-adjusted band starts the walk reads."""
-    n_pad = _pad_batch(len(idxs), with_transcripts)
+    n_pad = _bucket(len(idxs), mini=_batch_mini(with_transcripts))
     s_codes = np.zeros((n_pad, LS), np.int8)
     t_codes = np.zeros((n_pad, LT), np.int8)
     s_lens = np.ones((n_pad,), np.int32)
@@ -235,13 +235,8 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
 
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
-    # on the card a launch holds no more plane rows than K1 keeps resident
-    rows = None
-    if device.type == "cuda":
-        rows = lambda W: resident_rows(W, subst.shape[0], with_transcripts,
-                                       device)
     with Phase("pipeline.extend", cells=total_cells):
-        for idxs, LS, LT, W in plan_launches(cut, with_transcripts, rows):
+        for idxs, LS, LT, W in plan_launches(cut, with_transcripts):
             n = len(idxs)
             x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
                               with_transcripts)

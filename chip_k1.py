@@ -7,10 +7,11 @@ Plants chip_smoke.py's 2048 homologous 10 kbp blocks (same seed), plans
 the launches of ``extend_segments`` as the checkout's pipeline plans
 them (plus the 12-segment narrow launch), and times K1 with directions
 on each launch's inputs by CUDA events (mean of 3 after a warm-up): the
-sum is K1's time per smoke call.  It also times K1 on the first 490
-segments alone (512 pairs, 256 plane rows: the full launch of the TPU's
-per-launch budget), on those inputs tiled or sliced to 44-1024 plane
-rows, and ``extend_segments`` end to end (host clock, three calls).  It
+sum is K1's time per smoke call.  It also times K1 on all 2048
+segments in one launch, on the first 490 segments alone (512 pairs, 256
+plane rows: the full launch of the TPU's per-launch budget), on those
+inputs tiled or sliced to 44-2048 plane rows, and ``extend_segments``
+end to end (host clock, three calls).  It
 uses only what every checkout of the port has, so one call can time a
 parent commit and its change: copy this file into each checkout and run
 it there.  Exits 1 without a card.
@@ -20,7 +21,7 @@ import subprocess
 import sys
 import time
 
-ROWS_IN_FLIGHT = (44, 128, 256, 512, 1024)
+ROWS_IN_FLIGHT = (44, 128, 256, 512, 528, 1024, 1056, 2048)
 
 
 def main():
@@ -44,11 +45,8 @@ def main():
     subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
     flags = ModeFlags(local_start=True, local_end=True)
     cut = [pipeline.cut_segment(seg, len(S), len(T)) for seg in segments]
-    rows = ()
-    if hasattr(dp_ad, "resident_rows"):
-        rows = (lambda W: dp_ad.resident_rows(W, 4, True, dev),)
-    launches = (pipeline.plan_launches(cut, True, *rows)
-                + pipeline.plan_launches(cut[:cs.NARROW], True, *rows))
+    launches = (pipeline.plan_launches(cut, True)
+                + pipeline.plan_launches(cut[:cs.NARROW], True))
 
     def on_card(idxs, LS, LT, W):
         x = pipeline.launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr, True)
@@ -70,6 +68,10 @@ def main():
         del on
     print("k1 per smoke call: %d launches, %.3f ms" % (len(launches), total))
     idxs, LS, LT, W = launches[0]
+    whole = on_card(list(range(len(cut))), LS, LT, W)
+    print("k1 on all %d segments in one launch: %.3f ms"
+          % (len(cut), k1_ms(whole, W)))
+    del whole
     full = on_card(idxs[:490], LS, LT, W)
     print("k1 on the first 490 segments (%d pairs): %.3f ms"
           % (len(full["dmin"]), k1_ms(full, W)))

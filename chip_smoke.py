@@ -21,8 +21,7 @@ Phases, each of which exits non-zero on failure:
    checkout;
 2. runs the main path with the kernels' launch counters set to 0, and
    requires every kernel to have been launched once per launch of the
-   pipeline's plan (a launch holds no more plane rows than K1 keeps
-   resident on the card);
+   pipeline's plan;
 3. rescores every transcript with affine gaps in numpy (exactly its
    score) and requires transcripts to cover most of each block;
 4. on one full launch of the main path, holds the DP kernel (scores, end
@@ -288,15 +287,10 @@ def main():
     narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
     counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
     cut = [pipeline.cut_segment(seg, len(S), len(T)) for seg in segments]
-    # extend_segments' plan: a launch holds no more plane rows than K1
-    # keeps resident
-    rows = lambda W: dp_ad.resident_rows(W, 4, True, dev)
-    launches = pipeline.plan_launches(cut, True, rows)
+    launches = pipeline.plan_launches(cut, True)
     n_launches = len(launches) + len(pipeline.plan_launches(cut[:NARROW],
-                                                             True, rows))
-    print("launches: %d planned (K1 keeps %d plane rows resident at W %d),"
-          " %s counted" % (n_launches, rows(launches[0][3]), launches[0][3],
-                           counts))
+                                                             True))
+    print("launches: %d planned, %s counted" % (n_launches, counts))
     if any(c != n_launches for c in counts.values()):
         fail("a kernel was not launched once per launch: %s" % counts)
     cells = sum(seg["band_cells"] for seg in out)
@@ -711,7 +705,7 @@ def main():
     wide_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
     wide_cpu = pipeline.extend_segments(Sw, Tw, wseg, device="cpu", **ekw)
     wcut = [pipeline.cut_segment(seg, WIDE_LEN, WIDE_LEN) for seg in wseg]
-    (widx, wLS, wLT, wW), = pipeline.plan_launches(wcut, True, rows)
+    (widx, wLS, wLT, wW), = pipeline.plan_launches(wcut, True)
     print("wide band: W %d, launches %s, score %r, %d ops from (%d, %d)"
           % (wW, wide_counts, wide[0]["score"], len(wide[0]["transcript"]),
              wide[0]["origin_start"], wide[0]["mutate_start"]))

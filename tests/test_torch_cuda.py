@@ -267,30 +267,6 @@ def test_extend_segments_card_matches_cpu(rng, card):
                for seg in got)
 
 
-@pytest.mark.parametrize("W,A", [(128, 4), (256, 4), (256, 20), (1536, 4),
-                                 (4096, 32)])
-@pytest.mark.parametrize("with_dirs", [True, False])
-def test_dp_ad_resident_rows(card, W, A, with_dirs):
-    """The plane rows K1 keeps resident are whole blocks on every SM, at
-    least one each; a launch of that many rows runs."""
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
-    rows = dp_ad.resident_rows(W, A, with_dirs, device=card)
-    assert rows >= sms and rows % sms == 0
-    assert dp_ad.resident_rows(W, A, with_dirs, device=card) == rows
-    if W == 256:
-        B, L = 2 * rows, 40
-        s = torch.zeros((B, L), dtype=torch.int8, device=card)
-        lens = torch.full((B,), L, dtype=torch.int32, device=card)
-        dmin = torch.full((B,), -128, dtype=torch.int32, device=card)
-        subst = np.where(np.eye(A, dtype=bool), 1.0, -1.0).astype(np.float32)
-        got = dp_ad.banded_dp_ad(
-            s, s, lens, lens, dmin, W=W, subst=subst, go=-2.0, ge=-1.0,
-            flags=ModeFlags(local_start=True, local_end=True),
-            with_dirs=with_dirs, device=card)
-        assert torch.equal(got.score, torch.full((B,), float(L),
-                                                 device=card))
-
-
 @pytest.mark.parametrize("W", [128, 256, 1280, 2560, 4096])
 @pytest.mark.parametrize("A", [4, 20])
 @pytest.mark.parametrize("flags", ROW_FLAGS)

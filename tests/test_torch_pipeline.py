@@ -10,7 +10,6 @@ scores, transcripts, start cells and source indices equal.
 
 import numpy as np
 import pytest
-import torch
 
 import biseqt_tpu.pipeline as ref_pipeline
 from biseqt_tpu.blot import WordBlot
@@ -18,7 +17,6 @@ from biseqt_tpu.pw import Alignment
 from biseqt_tpu.sequence import Alphabet, Sequence
 from biseqt_tpu.stochastics import MutationProcess, rand_seq
 from biseqt_tpu_torch import native, pipeline
-from biseqt_tpu_torch.ops import dp_ad
 from biseqt_tpu_torch.sequence import from_reference
 from test_torch_cuda import UNIT
 
@@ -119,24 +117,27 @@ def _smoke_cuts(n):
             for k in range(n)]
 
 
-@pytest.mark.parametrize("rows,sizes", [
-    (None, [2048]),            # the CPU: the memory budget alone
-    (528, [1024, 1024]),       # 4 blocks of 256 threads on 132 SMs
-    (660, [1024, 1024]),       # 5 blocks: 1320 pairs pad past 1024
-    (1056, [2048]),            # 8 blocks: the whole group resident
-    (100, [192] * 10 + [128]),  # 193-200 pairs pad to 256
+@pytest.mark.parametrize("budget,with_transcripts,sizes", [
+    (None, True, [2048]),           # 8 GiB: 5272 pairs, floored to 4096
+    (3 << 30, True, [1536, 512]),   # 1975 pairs, floored to 1536
+    (1 << 30, True, [512] * 4),     # 658 pairs, floored to 512
+    (1, True, [2] * 1024),          # at least one plane row a launch
+    (1 << 30, False, [2048]),       # score-only: no plane
 ])
-def test_plan_launches_fills_the_resident_rows(rows, sizes):
-    """The smoke's 2048-pair group goes in as few launches as the rows
-    the card keeps resident allow, each launch's padded batch within
-    them; without a card the memory budget alone cuts it (8 GiB: 5267
-    pairs with their dirs planes)."""
-    resident = None if rows is None else (lambda W: rows)
-    launches = pipeline.plan_launches(_smoke_cuts(2048), True, resident)
+def test_plan_launches_fills_the_budget(monkeypatch, budget,
+                                        with_transcripts, sizes):
+    """The smoke's 2048-pair group goes in as few launches as the memory
+    budget allows (one by default), each launch's padded batch within
+    it: a pair with its dirs plane takes 1630720 bytes at this shape."""
+    if budget is not None:
+        monkeypatch.setattr(pipeline, "LAUNCH_BYTES", budget)
+    launches = pipeline.plan_launches(_smoke_cuts(2048), with_transcripts)
     assert [len(idxs) for idxs, *_ in launches] == sizes
     assert {launch[1:] for launch in launches} == {(12288, 12288, 256)}
-    if rows is not None:
-        assert all(pipeline._pad_batch(n, True) <= 2 * rows for n in sizes)
+    per_pair = 1630720 if with_transcripts else 25088
+    mini = pipeline._batch_mini(with_transcripts)
+    assert all(pipeline._bucket(n, mini) * per_pair <= pipeline.LAUNCH_BYTES
+               for n in sizes if n > mini)
     assert sorted(i for idxs, *_ in launches for i in idxs) == list(
         range(2048))
 
@@ -180,25 +181,15 @@ def test_extend_segments_split_into_launches_changes_nothing(
     assert all(seg["score"] > 100 for seg in got)
 
 
-def test_resident_rows_asks_the_card(rng, monkeypatch):
-    """``resident_rows`` reads the card and refuses the CPU; on the CPU
-    ``extend_segments`` never asks it (the memory budget alone plans its
-    launches)."""
-    with pytest.raises(ValueError, match="asks the card"):
-        dp_ad.resident_rows(256, device="cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="none is present"):
-        dp_ad.resident_rows(256)
-
-    def refuse(*a, **k):
-        raise AssertionError("resident_rows called on the CPU path")
-
-    monkeypatch.setattr(pipeline, "resident_rows", refuse)
-    S, T, segments = _two_cores(rng)
-    out = pipeline.extend_segments(from_reference(S), from_reference(T),
-                                   segments, subst=UNIT,
-                                   with_transcripts=True, device="cpu")
-    assert len(out) == len(segments) and all(s["score"] > 0 for s in out)
+@pytest.mark.parametrize("mini", [2, 8, 128])
+def test_bucket_floor_is_the_largest_bucket_within(mini):
+    """``_bucket_floor(n)`` is a bucket of ``_bucket``'s grid, at most
+    ``n``, and the next bucket passes ``n``."""
+    for n in range(0, 20000):
+        b = pipeline._bucket_floor(n, mini)
+        assert pipeline._bucket(b, mini) == b
+        assert b <= n or b == mini
+        assert pipeline._bucket(b + 1, mini) > n
 
 
 def test_extend_segments_band_above_2048_matches():
