@@ -4,7 +4,8 @@
 // (launched by _banded_dp_pallas_jit, public banded_dp_pallas), the
 // engine of pw.Aligner(backend="pallas_row").  The Python wrapper is
 // biseqt_tpu_torch/ops/dp_row.py, whose plain PyTorch twin
-// (_sweep_plain) computes exactly what this kernel does.
+// (_sweep_plain) computes exactly what this kernel does, and whose
+// planner (plan) picks the geometry below from the batch.
 //
 // Lane k of a row is the diagonal d = dmax - k; row i holds the cells
 // (i, j = i - dmax + k).  Diag (i-1, j-1) is the same lane of the
@@ -15,34 +16,55 @@
 //
 // What bounds it on this card.  Every row depends on the whole previous
 // row, and the prefix max makes every lane of a row depend on every
-// lane below it: the sweep is a chain of s_len rows, each of which
-// crosses the block twice (a scan through shared memory and the
-// exchange of the warp-edge lanes for the next row).  Per lane and row
-// the work is ~60 dependent float and integer operations, a byte load of
-// T and, with directions, one byte store; device-memory traffic is
-// that byte per cell.  So the kernel is bound by the latency of the
-// per-row barrier chain and by instruction issue, not by bytes.
+// lane below it: a pair is a chain of s_len rows.  Per lane and row the
+// work is ~12 float operations of the recurrence plus the scan, a table
+// lookup and, with directions, a byte of the plane; device-memory
+// traffic is that byte per cell.  So a batch is bound by instruction
+// issue and a lone pair by the latency of its row chain (a warp issues
+// in order, so every stall on the row's dependent operations is paid),
+// not by bytes.
 //
-// What the design does about it.  One block per pair, min(W, 1024)
-// threads, each owning LPT = W / threads consecutive lanes, so the
-// scan is a short serial max inside a thread, a warp __shfl_up_sync
-// scan of the thread totals, and one cross-warp pass through shared
-// memory: two __syncthreads per row.  H, F and the trackers stay in
-// registers for the whole sweep; each lane reads s[i-1] and
-// t[i-1+k-dmax] directly (no band-frame stream, so a band left of the
-// main diagonal cannot alias letters), and the A x A substitution table
-// sits in shared memory (any alphabet up to 64 letters; a uniform
-// match / mismatch matrix is one such table).  Many pairs run side by
-// side, one block each, to hide the chain's latency.  The row trackers of the
-// TPU kernel (a strict > per row, lowest lane on ties) are kept per
-// lane as (best, first row and step) and reduced once at the end: the
-// earliest row and step that reaches the maximum wins, and within it
-// the lowest lane, which is the cell the per-row trackers pick.
-// Directions go to the [B, LS, W] plane at 64-bit offsets, one
-// coalesced row at a time.
+// What the design does about it.  A thread owns LPT consecutive lanes,
+// so the scan is a serial max over its lanes, a 5-step __shfl_up_sync
+// scan of the 32 thread totals and an exclusive carry by one shuffle.
+// Two geometries (template parameter WPP):
+//  * a warp per pair (W = 32 * LPT, LPT 4 or 8): several pairs share a
+//    block, one warp each, and the row loop has no block barrier and no
+//    shared memory but the substitution table; the lane above lane W - 1
+//    is NEG, so the neighbour exchange is one shuffle;
+//  * a block per pair (the fewest warps that cover W, lanes past W dead;
+//    for wide bands and for a lone pair, which wants few warps on its
+//    chain): one __syncthreads a row.
+//    Before it each warp publishes its scan total, its total without its
+//    top lane (for the E-extend bit of the next warp's first lane) and
+//    its first lane's H_pre and F, double buffered by row parity; after
+//    it each warp reads the carry of the warps below, and the top thread
+//    of each warp forms the next warp's first lane's H itself (the same
+//    max and add), so no second exchange is needed.
+// Nothing but the recurrence sits on the row chain.  The T codes live
+// in registers: lane k of row i + 1 reads the letter lane k + 1 read in
+// row i, so a thread's codes shift down one lane a row, its top one from
+// the next thread by shuffle; the top lane of each warp takes its new
+// letter from a block of 32 codes, one a lane, loaded 32 rows ahead, as
+// the S codes are (volatile loads, so that the compiler keeps them
+// early), and broadcast by shuffle.  The next row's substitution scores
+// are looked up at the end of a row, from the (A + 1) x (A + 1) table in
+// shared memory, whose pad row and column (a negative S code scores 0, a
+// T pad NEG) leave the lookup without a branch.  The neighbour's F is
+// shuffled as soon as it is formed and its H as soon as lane 0's is.
+// The mode flags are folded into per-row constants and selects (a row
+// loop without branches), directions are a template parameter.  H, F
+// and the trackers stay in registers for the whole sweep.  The row
+// trackers of the TPU kernel (a strict > per row, lowest lane on ties)
+// are kept per lane as (best, first row and step) and reduced once at
+// the end: the earliest row and step that reaches the maximum wins, and
+// within it the lowest lane, which is the cell the per-row trackers
+// pick.  A thread's direction bytes go to the [B, LS, W] plane as one
+// word a row, at 64-bit offsets.
 //
 // Arithmetic follows the TPU kernel's order of float operations (its
-// direction bits come from float equality tests): build with
+// direction bits come from float equality tests): only the grouping of
+// the E chain's maxes differs, and max is exact.  Build with
 // --fmad=false.
 
 #include <cstdint>
@@ -52,10 +74,18 @@
 namespace {
 
 constexpr float NEGF = -1e30f;
+// -inf (CUDART_INF_F is a call, not a constant expression)
+#define NINF (-CUDART_INF_F)
 constexpr int FREE_START_EDGES = 1;
 constexpr int LOCAL_START = 2;
 constexpr int FREE_END_EDGES = 4;
 constexpr int LOCAL_END = 8;
+// the modes with instances of their own (pw.Aligner's banded types),
+// and the instance that reads the flags at run time
+constexpr int GLOBAL = 0;
+constexpr int LOCAL = LOCAL_START | LOCAL_END;
+constexpr int OVERLAP = FREE_START_EDGES | FREE_END_EDGES;
+constexpr int RUNTIME = -1;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
@@ -73,7 +103,6 @@ struct Args {
     int32_t* ei;
     int32_t* ek;
     uint8_t* dirs;
-    int with_dirs;
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -100,7 +129,7 @@ __device__ float block_max(float v, float* red) {
     __syncthreads();                    // red may still be read
     if (lane == 0) red[warp] = v;
     __syncthreads();
-    return warp_max(lane < nw ? red[lane] : -CUDART_INF_F);
+    return warp_max(lane < nw ? red[lane] : NINF);
 }
 
 __device__ unsigned long long block_min(unsigned long long v,
@@ -114,36 +143,95 @@ __device__ unsigned long long block_min(unsigned long long v,
     return warp_min(lane < nw ? red[lane] : ~0ull);
 }
 
-template <int LPT>
-__global__ void __launch_bounds__(1024)
-dp_row_kernel(Args g) {
-    extern __shared__ float smem[];
-    float* wtot = smem;            // [32] max of each warp's Q this row
-    float* wx = wtot + 32;         // [32] the same without its last lane
-    float* eHG = wx + 32;          // [32] H + go of each warp's first lane
-    float* eF = eHG + 32;          // [32] F of each warp's first lane
-    float* red = eF + 32;          // [32] reduction scratch
-    unsigned long long* redk = reinterpret_cast<unsigned long long*>(
-        red + 32);                 // [32]
-    float* tab = reinterpret_cast<float*>(redk + 32);   // [A * A]
+// *p where `in` holds, else `pad`; no branch.  The load is volatile so
+// that the compiler issues it where the code places it, rows before its
+// use, and does not sink it to that use.
+__device__ __forceinline__ int load_code(const int8_t* p, bool in, int pad) {
+    int v = pad;
+    asm volatile(
+        "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+        "@q ld.global.nc.s8 %0, [%1];\n\t}"
+        : "+r"(v) : "l"(p), "r"((unsigned)in));
+    return v;
+}
 
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nw = blockDim.x >> 5;
-    const int W = g.W, A = g.A;
-    for (int x = tid; x < A * A; x += blockDim.x) tab[x] = g.table[x];
+// The table column of T position idx: its code, or A (the pad column)
+// outside [0, tlen) and for a negative code.
+__device__ __forceinline__ int t_column(const int8_t* trow, int idx, int tlen,
+                                        int A) {
+    const int c = load_code(trow + idx, idx >= 0 && idx < tlen, A);
+    return c < 0 ? A : c;
+}
+
+// H of row 0 at lane k
+__device__ __forceinline__ float h_row0(int k, int dmax, int tlen, int weff,
+                                        bool zero_start, float go,
+                                        float ge) {
+    const int j0 = k - dmax;
+    const bool valid0 = j0 >= 0 && j0 <= tlen && k < weff;
+    float h0 = 0.0f;
+    if (!zero_start && j0 > 0) h0 = go + ge * (float)j0;
+    return valid0 ? h0 : NEGF;
+}
+
+// A thread's LPT direction bytes (packed little-endian in pk) to p, one
+// store; p is LPT-aligned.
+template <int LPT>
+__device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t* pk) {
+    if constexpr (LPT == 4)
+        *reinterpret_cast<uint32_t*>(p) = pk[0];
+    else
+        *reinterpret_cast<uint2*>(p) = make_uint2(pk[0], pk[1]);
+}
+
+// WPP: a warp per pair (W = 32 * LPT, blockDim.x / 32 pairs a block);
+// else a block per pair of whole warps, the lanes from W up to
+// blockDim.x * LPT dead.  DIRS: write the plane and track the end cell.
+// MODE: the flags, or RUNTIME to read g.flags.
+template <int LPT, bool WPP, bool DIRS, int MODE>
+__global__ void __launch_bounds__(WPP ? 256 : 512)
+dp_row_kernel(Args g) {
+    static_assert(LPT == 4 || LPT == 8, "LPT");
+    extern __shared__ float smem[];
+    const int A = g.A, A1 = A + 1;
+    float* tab = smem;                            // [(A + 1) * (A + 1)]
+    float* xch = tab + ((A1 * A1 + 1) & ~1);      // [2][4][32], block mode
+    float* red = xch + 256;                       // [32]
+    unsigned long long* redk =
+        reinterpret_cast<unsigned long long*>(red + 32);   // [32]
+
+    const int tid = threadIdx.x;
+    for (int x = tid; x < A1 * A1; x += blockDim.x) {
+        const int r = x / A1, c = x - r * A1;
+        tab[x] = c == A ? NEGF : (r == A ? 0.0f : g.table[r * A + c]);
+    }
+    __syncthreads();
+
+    const int lane = tid & 31;
+    const int b = WPP ? blockIdx.x * (blockDim.x >> 5) + (tid >> 5)
+                      : blockIdx.x;
+    if (b >= g.B) return;          // the last block's spare warps (WPP)
+    const int t = WPP ? lane : tid;           // thread within the pair
+    const int w = WPP ? 0 : tid >> 5;         // warp within the pair
+    const int nw = WPP ? 1 : blockDim.x >> 5;
+    const bool has_next = !WPP && w + 1 < nw; // a warp of the pair above
 
     const int slen = g.s_lens[b], tlen = g.t_lens[b];
-    const int dmax = g.dmax[b], weff = g.w_eff[b];
+    // lanes past W (a block's last warp) are dead like those past w_eff
+    const int dmax = g.dmax[b], weff = min(g.w_eff[b], g.W);
     const int8_t* srow = g.s + (size_t)b * g.LS;
     const int8_t* trow = g.t + (size_t)b * g.LT;
-    const bool local_start = g.flags & LOCAL_START;
-    const bool free_start = g.flags & FREE_START_EDGES;
-    const bool track_local = g.flags & LOCAL_END;
-    const bool track_col = g.flags & FREE_END_EDGES;
-    const bool track_end = g.with_dirs && (track_local || track_col);
+    const int flags = MODE == RUNTIME ? g.flags : MODE;
+    const bool local_start = flags & LOCAL_START;
+    const bool free_start = flags & FREE_START_EDGES;
+    const bool track_local = flags & LOCAL_END;
+    const bool track_col = flags & FREE_END_EDGES;
+    const bool track_end = DIRS && (track_local || track_col);
     const float go = g.go, ge = g.ge;
-    const int k0 = tid * LPT;
+    const float lfloor = local_start ? 0.0f : NINF;   // H_pre's local floor
+    const int k0 = t * LPT;
+    // this warp's top lane
+    const int kt = k0 - lane * LPT + 32 * LPT - 1;
 
     // A[0]: lane 0's E-chain seed, shr() fills NEG
     const float A0 = NEGF + g.gg;
@@ -154,12 +242,8 @@ dp_row_kernel(Args g) {
         const int k = k0 + m;
         gek[m] = ge * (float)k;
         cg1[m] = g.gg - ge * (float)(k + 1);     // cgek of lane k + 1
-        const int j0 = k - dmax;
-        const bool valid0 = j0 >= 0 && j0 <= tlen && k < weff;
-        float h0 = 0.0f;
-        if (!(local_start || free_start) && j0 > 0)
-            h0 = go + ge * (float)j0;
-        H[m] = valid0 ? h0 : NEGF;
+        H[m] = h_row0(k, dmax, tlen, weff, local_start || free_start, go,
+                      ge);
         F[m] = NEGF;
         // row 0 can hold alignment ends: the trackers are seeded from it
         float b0 = NEGF;
@@ -172,143 +256,203 @@ dp_row_kernel(Args g) {
         bv[m] = lb[m] = b0;
         lkey[m] = 0;
     }
-    if (lane == 0) {
-        eHG[warp] = H[0] + go;
-        eF[warp] = F[0];
+    // block mode, the top thread of a warp below another: (H, F) of lane
+    // k1 = k0 + LPT (the next warp's first lane) in the previous row
+    const int k1 = k0 + LPT;
+    const float gek1 = ge * (float)k1;
+    float nH = NEGF, nF = NEGF;
+    if (has_next && lane == 31)
+        nH = h_row0(k1, dmax, tlen, weff, local_start || free_start, go, ge);
+    // (H + go, F) of lane k0 + LPT in the previous row: the next thread's
+    // first lane; NEG beyond lane W - 1
+    float nHG = __shfl_down_sync(FULL, H[0] + go, 1);
+    float nFv = __shfl_down_sync(FULL, F[0], 1);
+    if (lane == 31) {
+        nHG = has_next ? nH + go : NEGF;
+        nFv = nF;
     }
-    __syncthreads();
 
-    for (int i = 1; i <= slen; ++i) {
-        const int sc = srow[i - 1];
-        // (H + go, F) of lane k0 + LPT in row i - 1: the next thread's
-        // first lane, through shared memory across a warp edge, NEG
-        // beyond lane W - 1
-        float nHG = __shfl_down_sync(FULL, H[0] + go, 1);
-        float nF = __shfl_down_sync(FULL, F[0], 1);
-        if (lane == 31) {
-            nHG = warp + 1 < nw ? eHG[warp + 1] : NEGF;
-            nF = warp + 1 < nw ? eF[warp + 1] : NEGF;
-        }
-        float diag[LPT], Fn[LPT], Fx[LPT], Hpre[LPT], inc[LPT];
-        float run = -CUDART_INF_F;
+    // Codes, 32 rows a block: for the block starting at row i0, lane l
+    // holds s[i0 - 1 + l] (row i0 + l) and the column of the warp's top
+    // lane in row i0 + 1 + l (as a byte offset into a table row); the
+    // next block is loaded a block ahead.
+    const char* tabb = reinterpret_cast<const char*>(tab);
+    const int row_bytes = 4 * A1;
+    int sv = load_code(srow + lane, lane < slen, 0);
+    int tv = 4 * t_column(trow, 1 + lane + kt - dmax, tlen, A);
+    int sv_n = load_code(srow + 32 + lane, 32 + lane < slen, 0);
+    int tv_n = 4 * t_column(trow, 33 + lane + kt - dmax, tlen, A);
+    // the columns of this thread's lanes, and their scores, in row 1
+    int code[LPT];
+    float sub[LPT];
+    {
+        const int sc = __shfl_sync(FULL, sv, 0);
+        const char* tabs = tabb + (sc >= 0 && sc < A ? sc : A) * row_bytes;
 #pragma unroll
         for (int m = 0; m < LPT; ++m) {
-            const int k = k0 + m;
-            const int j = i - dmax + k;
-            const int tj = j - 1;
-            const int tc = (tj >= 0 && tj < tlen) ? trow[tj] : -1;
-            float sub;
-            if (tc < 0) {
-                sub = NEGF;                       // T PAD poisons the cell
-            } else {
-                sub = (sc >= 0 && sc < A) ? tab[sc * A + tc] : 0.0f;
-            }
-            diag[m] = H[m] + sub;
-            const float hg_n = m + 1 < LPT ? H[m + 1] + go : nHG;
-            const float f_n = m + 1 < LPT ? F[m + 1] : nF;
-            if (g.with_dirs) {
-                Fx[m] = f_n + ge;
-                Fn[m] = fmaxf(hg_n + ge, Fx[m]);
-            } else {
-                Fn[m] = fmaxf(hg_n, f_n) + ge;
-            }
-            float hp = fmaxf(diag[m], Fn[m]);
-            if (local_start) hp = fmaxf(hp, 0.0f);
-            if (free_start && j == 0) hp = fmaxf(hp, 0.0f);
-            Hpre[m] = hp;
-            // Q = A of lane k + 1; the running max is the local scan
-            run = fmaxf(run, hp + cg1[m]);
-            inc[m] = run;
+            code[m] = 4 * t_column(trow, k0 + m - dmax, tlen, A);
+            sub[m] = *reinterpret_cast<const float*>(tabs + code[m]);
         }
-        // warp scan of the thread totals
-        float x = run;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const float y = __shfl_up_sync(FULL, x, off);
-            if (lane >= off) x = fmaxf(x, y);
-        }
-        float excl = __shfl_up_sync(FULL, x, 1);
-        if (lane == 0) excl = -CUDART_INF_F;
-        if (lane == 31) {
-            wtot[warp] = x;
-            wx[warp] = LPT > 1 ? fmaxf(excl, inc[LPT > 1 ? LPT - 2 : 0])
-                               : excl;
-        }
-        __syncthreads();
-        // carries across warps: max of the warps below, and below that
-        float wv = lane < nw ? wtot[lane] : -CUDART_INF_F;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const float y = __shfl_up_sync(FULL, wv, off);
-            if (lane >= off) wv = fmaxf(wv, y);
-        }
-        const float c1 = __shfl_sync(FULL, wv, warp > 0 ? warp - 1 : 0);
-        const float c2 = __shfl_sync(FULL, wv, warp > 1 ? warp - 2 : 0);
-        const float carry = warp > 0 ? c1 : -CUDART_INF_F;
-        const float carry2 = warp > 1 ? c2 : -CUDART_INF_F;
-        // P at this thread's first lane, then at its other lanes
-        const float base = fmaxf(A0, fmaxf(carry, excl));
-        float P[LPT];
-        P[0] = base;
-#pragma unroll
-        for (int m = 1; m < LPT; ++m) P[m] = fmaxf(base, inc[m - 1]);
-        // P at lane k0 - 1, for the E-extend bit of lane k0
-        float Pprev = __shfl_up_sync(FULL, P[LPT - 1], 1);
-        if (lane == 0)
-            Pprev = warp == 0 ? NEGF
-                              : fmaxf(A0, fmaxf(carry2, wx[warp - 1]));
+    }
 
-        const int kcol = tlen - i + dmax;
-        const size_t row_off = ((size_t)b * g.LS + (size_t)(i - 1)) * W;
+    for (int i0 = 1; i0 <= slen; i0 += 32) {
+        if (i0 > 1) {
+            sv = sv_n;
+            tv = tv_n;
+            sv_n = load_code(srow + i0 + 31 + lane, i0 + 31 + lane < slen, 0);
+            tv_n = 4 * t_column(trow, i0 + 32 + lane + kt - dmax, tlen, A);
+        }
+        const int rows = min(32, slen - i0 + 1);
+        for (int r = 0; r < rows; ++r) {
+            const int i = i0 + r;
+            const int jb = i - dmax + k0;            // j of lane k0
+            // the lane (relative to k0) whose j is 0 under a free start, and
+            // the lane of the column tracker; -1 when the mode has none
+            const int mz = free_start ? -jb : -1;
+            const int kcol = tlen - i + dmax;
+            const int mc = track_col ? kcol - k0 : -1;
+            float diag[LPT], Fn[LPT], Fx[LPT], Hpre[LPT], inc[LPT];
+            float run = NINF;
 #pragma unroll
-        for (int m = 0; m < LPT; ++m) {
-            const int k = k0 + m;
-            const int j = i - dmax + k;
-            const bool ok = k < weff;
-            const float E = P[m] + gek[m];
-            // dead lanes are masked after the E merge
-            const float Hn = ok ? fmaxf(Hpre[m], E) : NEGF;
-            const bool valid_j = j >= 0 && j <= tlen && ok;
-            if (g.with_dirs) {
-                int d = Hn == diag[m] ? 1 : (Hn == E ? 2 : 3);
-                if (local_start && Hn == 0.0f && diag[m] < 0.0f) d = 0;
-                if (free_start && j == 0 && Hn == 0.0f && Fn[m] < 0.0f)
-                    d = 0;
-                const float pp = m == 0 ? Pprev : P[m > 0 ? m - 1 : 0];
-                const int byte = d + (P[m] == pp ? 4 : 0)
-                                 + (Fn[m] == Fx[m] ? 8 : 0);
-                g.dirs[row_off + k] = valid_j ? (uint8_t)byte : 0;
+            for (int m = 0; m < LPT; ++m) {
+                diag[m] = H[m] + sub[m];
+                const float hg_n = m + 1 < LPT ? H[m + 1] + go : nHG;
+                const float f_n = m + 1 < LPT ? F[m + 1] : nFv;
+                if (DIRS) {
+                    Fx[m] = f_n + ge;
+                    Fn[m] = fmaxf(hg_n + ge, Fx[m]);
+                } else {
+                    Fn[m] = fmaxf(hg_n, f_n) + ge;
+                }
+                float hp = fmaxf(fmaxf(diag[m], Fn[m]), lfloor);
+                hp = fmaxf(hp, m == mz ? 0.0f : NINF);
+                Hpre[m] = hp;
+                // Q = A of lane k + 1; the running max is the local scan
+                run = fmaxf(run, hp + cg1[m]);
+                inc[m] = run;
             }
-            if (track_local) bv[m] = fmaxf(bv[m], Hn);
-            if (track_col && k == kcol) bv[m] = fmaxf(bv[m], Hn);
-            if (track_end) {
-                // step order of a row: local, column, last row
-                if (track_local && valid_j && Hn > lb[m]) {
-                    lb[m] = Hn;
-                    lkey[m] = 3 * i;
+            // the next row's F of lane k0 + LPT
+            nFv = __shfl_down_sync(FULL, Fn[0], 1);
+            // warp scan of the thread totals (a lane below off gets its own)
+            float x = run;
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1)
+                x = fmaxf(x, __shfl_up_sync(FULL, x, off));
+            float excl = __shfl_up_sync(FULL, x, 1);
+            if (lane == 0) excl = NINF;
+            // carry of the warps below, and P at lane k0 - 1 for lane 0
+            float carry = NINF, pprev0 = NEGF;
+            if (!WPP) {
+                // tot, tot without the top lane, H_pre, F
+                float* buf = xch + (i & 1) * 128;
+                if (lane == 31) {
+                    buf[w] = x;
+                    buf[32 + w] = fmaxf(excl, inc[LPT - 2]);
                 }
-                if (track_col && k == kcol && Hn > lb[m]) {
-                    lb[m] = Hn;
-                    lkey[m] = 3 * i + 1;
+                if (lane == 0) {
+                    buf[64 + w] = Hpre[0];
+                    buf[96 + w] = Fn[0];
                 }
-                if (track_col && i == slen && valid_j && Hn > lb[m]) {
-                    lb[m] = Hn;
-                    lkey[m] = 3 * i + 2;
+                __syncthreads();
+                if (w > 0) {
+                    float c2 = NINF;
+                    for (int u = 0; u + 1 < w; ++u) c2 = fmaxf(c2, buf[u]);
+                    carry = fmaxf(c2, buf[w - 1]);
+                    pprev0 = fmaxf(A0, fmaxf(c2, buf[32 + w - 1]));
+                }
+                if (has_next && lane == 31) {
+                    // the next warp's first lane, as that warp forms it
+                    const float E1 = fmaxf(A0, fmaxf(carry, x)) + gek1;
+                    nH = k1 < weff ? fmaxf(buf[64 + w + 1], E1) : NEGF;
+                    nF = buf[96 + w + 1];
                 }
             }
-            H[m] = Hn;
-            F[m] = Fn[m];
+            // P at this thread's first lane, then at its other lanes
+            const float base = fmaxf(A0, fmaxf(carry, excl));
+            float P[LPT];
+            P[0] = base;
+#pragma unroll
+            for (int m = 1; m < LPT; ++m) P[m] = fmaxf(base, inc[m - 1]);
+            // P at lane k0 - 1, for the E-extend bit of lane k0
+            float Pprev = NEGF;
+            if (DIRS) {
+                Pprev = __shfl_up_sync(FULL, P[LPT - 1], 1);
+                if (lane == 0) Pprev = pprev0;
+            }
+
+            uint32_t pk[(LPT + 3) / 4];
+#pragma unroll
+            for (int q = 0; q < (LPT + 3) / 4; ++q) pk[q] = 0;
+            // lanes with a cell of the matrix: jb + m in [0, tlen], k < w_eff
+            const int mlo = -jb, mhi = min(tlen - jb, weff - 1 - k0);
+            const bool last_col = track_col && i == slen;
+#pragma unroll
+            for (int m = 0; m < LPT; ++m) {
+                const bool ok = k0 + m < weff;
+                const float E = P[m] + gek[m];
+                // dead lanes are masked after the E merge
+                const float Hn = ok ? fmaxf(Hpre[m], E) : NEGF;
+                if (m == 0) {
+                    // the next row's H + go of lane k0 + LPT
+                    nHG = __shfl_down_sync(FULL, Hn + go, 1);
+                }
+                bv[m] = fmaxf(bv[m], track_local || m == mc ? Hn : NINF);
+                if (DIRS) {
+                    const bool valid_j = m >= mlo && m <= mhi;
+                    int d = Hn == diag[m] ? 1 : (Hn == E ? 2 : 3);
+                    if ((local_start && Hn == 0.0f && diag[m] < 0.0f)
+                        || (m == mz && Hn == 0.0f && Fn[m] < 0.0f))
+                        d = 0;
+                    const float pp = m == 0 ? Pprev : P[m > 0 ? m - 1 : 0];
+                    const uint32_t byte = d + (P[m] == pp ? 4 : 0)
+                                          + (Fn[m] == Fx[m] ? 8 : 0);
+                    pk[m >> 2] |= (valid_j ? byte : 0u) << (8 * (m & 3));
+                    if (track_end) {
+                        // step order of a row: local, column, last row
+                        if (track_local && valid_j && Hn > lb[m]) {
+                            lb[m] = Hn;
+                            lkey[m] = 3 * i;
+                        }
+                        if (m == mc && Hn > lb[m]) {
+                            lb[m] = Hn;
+                            lkey[m] = 3 * i + 1;
+                        }
+                        if (last_col && valid_j && Hn > lb[m]) {
+                            lb[m] = Hn;
+                            lkey[m] = 3 * i + 2;
+                        }
+                    }
+                }
+                H[m] = Hn;
+                F[m] = Fn[m];
+            }
+            if (lane == 31) {
+                nHG = has_next ? nH + go : NEGF;
+                nFv = nF;
+            }
+            if (DIRS && k0 < g.W)
+                store_bytes<LPT>(g.dirs + ((size_t)b * g.LS + (size_t)(i - 1))
+                                              * g.W + k0, pk);
+
+            // the next row: codes shift down a lane, the top lane's from the
+            // block; its scores from the table row of its S letter
+            const int top = __shfl_sync(FULL, tv, r);
+            int cin = __shfl_down_sync(FULL, code[0], 1);
+            if (lane == 31) cin = top;
+#pragma unroll
+            for (int m = 0; m + 1 < LPT; ++m) code[m] = code[m + 1];
+            code[LPT - 1] = cin;
+            const int sc = __shfl_sync(FULL, r < 31 ? sv : sv_n, (r + 1) & 31);
+            const char* tabs = tabb + (sc >= 0 && sc < A ? sc : A) * row_bytes;
+#pragma unroll
+            for (int m = 0; m < LPT; ++m)
+                sub[m] = *reinterpret_cast<const float*>(tabs + code[m]);
         }
-        if (lane == 0) {
-            eHG[warp] = H[0] + go;
-            eF[warp] = F[0];
-        }
-        __syncthreads();
     }
 
     // H holds the pair's last row
     const int kcorner = tlen - slen + dmax;
-    float v = -CUDART_INF_F;
+    float v = NINF;
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
         const int k = k0 + m;
@@ -320,17 +464,17 @@ dp_row_kernel(Args g) {
         else
             v = fmaxf(v, (k == kcorner && ok) ? H[m] : NEGF);
     }
-    const float score = block_max(v, red);
-    int ei = g.s_lens[b], ek = kcorner;
+    const float score = WPP ? warp_max(v) : block_max(v, red);
+    int ei = slen, ek = kcorner;
     if (track_local || track_col) {
         ei = -1;
         ek = 0;
     }
     if (track_end) {
-        float lv = -CUDART_INF_F;
+        float lv = NINF;
 #pragma unroll
         for (int m = 0; m < LPT; ++m) lv = fmaxf(lv, lb[m]);
-        const float M = block_max(lv, red);
+        const float M = WPP ? warp_max(lv) : block_max(lv, red);
         unsigned long long key = ~0ull;
 #pragma unroll
         for (int m = 0; m < LPT; ++m) {
@@ -338,15 +482,43 @@ dp_row_kernel(Args g) {
                 ((unsigned long long)lkey[m] << 13) | (unsigned)(k0 + m);
             if (lb[m] == M && c < key) key = c;
         }
-        key = block_min(key, redk);
+        key = WPP ? warp_min(key) : block_min(key, redk);
         ei = (int)((key >> 13) / 3);
         ek = (int)(key & 8191);
     }
-    if (tid == 0) {
+    if (t == 0) {
         g.score[b] = score;
         g.ei[b] = ei;
         g.ek[b] = ek;
     }
+}
+
+template <int LPT, bool WPP, bool DIRS, int MODE>
+void launch_one(const Args& g, int blocks, int threads, size_t smem,
+                cudaStream_t st) {
+    dp_row_kernel<LPT, WPP, DIRS, MODE><<<blocks, threads, smem, st>>>(g);
+}
+
+template <int LPT, bool WPP, bool DIRS>
+void launch_mode(const Args& g, int blocks, int threads, size_t smem,
+                 cudaStream_t st) {
+    if (g.flags == LOCAL)
+        launch_one<LPT, WPP, DIRS, LOCAL>(g, blocks, threads, smem, st);
+    else if (g.flags == GLOBAL)
+        launch_one<LPT, WPP, DIRS, GLOBAL>(g, blocks, threads, smem, st);
+    else if (g.flags == OVERLAP)
+        launch_one<LPT, WPP, DIRS, OVERLAP>(g, blocks, threads, smem, st);
+    else
+        launch_one<LPT, WPP, DIRS, RUNTIME>(g, blocks, threads, smem, st);
+}
+
+template <int LPT, bool WPP>
+void launch(const Args& g, bool with_dirs, int blocks, int threads,
+            size_t smem, cudaStream_t st) {
+    if (with_dirs)
+        launch_mode<LPT, WPP, true>(g, blocks, threads, smem, st);
+    else
+        launch_mode<LPT, WPP, false>(g, blocks, threads, smem, st);
 }
 
 }  // namespace
@@ -358,19 +530,30 @@ extern "C" const char* bst_cuda_error_string(int code) {
 // Launches the row sweep over B pairs on `stream` (no synchronisation)
 // and returns cudaGetLastError().  All pointers are device pointers;
 // W must be a multiple of 128 and at most 4096, A at most 64.  The
-// dirs plane [B, LS, W] must be zeroed by the caller: rows past a
-// pair's length are not written.
+// geometry: `lpt` (4 or 8) lanes a thread; with `warp_per_pair` a warp
+// per pair (W = 32 * lpt, threads / 32 pairs a block, at most 256
+// threads), else a block per pair of the fewest warps that cover W (at
+// most 512 threads).  The dirs plane [B, LS, W] must be zeroed by the
+// caller: rows past a pair's length are not written.
 extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
                           const void* t_lens, const void* dmax,
                           const void* w_eff, const void* table, int A,
                           int B, int LS, int LT, int W, int flags,
                           float go, float ge, float gg, void* score,
                           void* ei, void* ek, void* dirs, int with_dirs,
+                          int lpt, int warp_per_pair, int threads,
                           int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (W < 128 || W % 128 || W > 4096 || A < 1 || A > 64)
+    if (W < 128 || W % 128 || W > 4096 || A < 1 || A > 64
+        || threads < 32 || threads % 32)
         return (int)cudaErrorInvalidValue;
+    const bool wpp = warp_per_pair != 0;
+    if ((lpt != 4 && lpt != 8)
+        || (wpp ? W != 32 * lpt || threads > 256
+                : threads != (W + 32 * lpt - 1) / (32 * lpt) * 32
+                  || threads > 512))
+        return (int)cudaErrorInvalidConfiguration;
     if (B == 0) return 0;
     Args g;
     g.s = static_cast<const int8_t*>(s);
@@ -387,15 +570,20 @@ extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
     g.ei = static_cast<int32_t*>(ei);
     g.ek = static_cast<int32_t*>(ek);
     g.dirs = static_cast<uint8_t*>(dirs);
-    g.with_dirs = with_dirs;
-    const size_t smem = sizeof(float) * (5 * 32 + (size_t)A * A)
+    const int A1 = A + 1;
+    const size_t smem = sizeof(float) * (((A1 * A1 + 1) & ~1) + 256 + 32)
                         + sizeof(unsigned long long) * 32;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (W <= 1024)
-        dp_row_kernel<1><<<B, W, smem, st>>>(g);
-    else if (W <= 2048)
-        dp_row_kernel<2><<<B, W / 2, smem, st>>>(g);
-    else
-        dp_row_kernel<4><<<B, W / 4, smem, st>>>(g);
+    const bool d = with_dirs != 0;
+    if (wpp) {
+        const int ppb = threads / 32;
+        const int blocks = (B + ppb - 1) / ppb;
+        if (lpt == 4) launch<4, true>(g, d, blocks, threads, smem, st);
+        else launch<8, true>(g, d, blocks, threads, smem, st);
+    } else if (lpt == 4) {
+        launch<4, false>(g, d, B, threads, smem, st);
+    } else {
+        launch<8, false>(g, d, B, threads, smem, st);
+    }
     return (int)cudaGetLastError();
 }

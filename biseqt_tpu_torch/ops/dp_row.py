@@ -29,15 +29,17 @@ the TPU kernel forms them (``go + ge`` summed in double, then
 tests.
 
 :func:`banded_dp_row` launches the CUDA kernel (``csrc/dp_row.cu``) on
-CUDA and runs the plain PyTorch twin :func:`banded_dp_row_reference`
-on the CPU.  Unlike the JAX wrapper, the alphabet size defaults to the
-substitution matrix's (the JAX wrapper defaults to 4, and its
-``Aligner`` never passes it, so a 20-letter matrix raises there).
+CUDA, in the geometry :func:`plan` picks from the batch, and runs the
+plain PyTorch twin :func:`banded_dp_row_reference` on the CPU.  Unlike
+the JAX wrapper, the alphabet size defaults to the substitution
+matrix's (the JAX wrapper defaults to 4, and its ``Aligner`` never
+passes it, so a 20-letter matrix raises there).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,15 +47,67 @@ import torch
 from .banded_dp import (NEG, DPResult, ModeFlags, on_device, resolve_device,
                         shift_lanes)
 
-__all__ = ["banded_dp_row", "banded_dp_row_reference", "LAUNCHES"]
+__all__ = ["banded_dp_row", "banded_dp_row_reference", "plan", "Geometry",
+           "LAUNCHES"]
 
 # CUDA kernel launches made by banded_dp_row (never by the plain twin)
 LAUNCHES = 0
 
-MAX_W = 4096      # kernel: at most 1024 threads x 4 lanes each
+MAX_W = 4096      # kernel: at most 512 threads x 8 lanes each
 MAX_A = 64        # kernel: the A x A table lives in shared memory
 
+# The kernel's instances (csrc/dp_row.cu): lanes a thread owns, for a
+# warp per pair (W = 32 * LPT) and for a block per pair (the fewest warps
+# that cover W, at most MAX_BLOCK_THREADS threads).
+WARP_LPT = (4, 8)
+BLOCK_LPT = (4, 8)
+MAX_BLOCK_THREADS = 512
+SMS = 132                 # the H100's streaming multiprocessors
+# a warp per pair: pairs share a block (up to PAIRS_PER_BLOCK) once every
+# SM holds WARPS_PER_SM of them
+PAIRS_PER_BLOCK, WARPS_PER_SM = 4, 8
+
 _NEGF = np.float32(NEG)
+
+
+class Geometry(NamedTuple):
+    """A launch of the kernel: ``lpt`` consecutive lanes a thread, a warp
+    per pair (``threads / 32`` pairs a block) or a block per pair."""
+
+    lpt: int
+    warp_per_pair: bool
+    threads: int
+
+    def check(self, W: int) -> None:
+        """Raise unless the kernel has this instance and it owns each of W
+        lanes once (a block per pair: whole warps, the last one's lanes
+        past W dead)."""
+        if self.warp_per_pair:
+            ok = (self.lpt in WARP_LPT and W == 32 * self.lpt
+                  and self.threads % 32 == 0 and 32 <= self.threads <= 256)
+        else:
+            ok = (self.lpt in BLOCK_LPT
+                  and self.threads == -(-W // (32 * self.lpt)) * 32
+                  and self.threads <= MAX_BLOCK_THREADS)
+        if not ok:
+            raise ValueError("the kernel has no instance %r for W %d"
+                             % (self, W))
+
+
+def plan(B: int, W: int, with_dirs: bool = False) -> Geometry:
+    """The kernel's geometry for ``B`` pairs of width ``W``.  Where a warp
+    can own the whole row (W 128 or 256: 4 or 8 lanes a thread) it does,
+    whatever the batch: no block barrier in the row loop; pairs share a
+    block once every SM holds :data:`WARPS_PER_SM`.  Wider bands take a
+    block per pair, one barrier a row, 8 lanes a thread (fewest warps),
+    except with directions on fewer pairs than SMs: there 4 (8 a thread
+    issue the longer directions code on too few schedulers)."""
+    if W % 32 == 0 and W // 32 in WARP_LPT:
+        ppb = max(1, min(PAIRS_PER_BLOCK, -(-B // (SMS * WARPS_PER_SM))))
+        return Geometry(W // 32, True, 32 * ppb)
+    fits4 = W <= 4 * MAX_BLOCK_THREADS
+    lpt = 4 if with_dirs and B < SMS and fits4 else 8
+    return Geometry(lpt, False, -(-W // (32 * lpt)) * 32)
 
 
 def _table(subst: np.ndarray) -> np.ndarray:
@@ -250,16 +304,18 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
     return score, ei, ek, dirs
 
 
-def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
-    """Launch ``csrc/dp_row.cu`` on the current stream; same outputs as
-    :func:`_sweep_plain`."""
+def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
+    """Launch ``csrc/dp_row.cu`` on the current stream in ``geometry``
+    (default :func:`plan`); same outputs as :func:`_sweep_plain`."""
     global LAUNCHES
     from .. import _build
     from ..native import _flags_of
 
+    B, LS, W = g["B"], g["LS"], g["W"]
+    geo = plan(B, W, with_dirs) if geometry is None else geometry
+    geo.check(W)
     lib = _build.load("dp_row", _declare)
     dev = g["s_codes"].device
-    B, LS, W = g["B"], g["LS"], g["W"]
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     ei = torch.empty((B,), dtype=torch.int32, device=dev)
     ek = torch.empty_like(ei)
@@ -272,7 +328,8 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
         ptr(g["t_lens"]), ptr(g["dmax"]), ptr(g["w_eff"]),
         ptr(g["table"]), g["A"], B, LS, g["LT"], W, _flags_of(flags),
         f(g["go"]), f(g["ge"]), f(g["gg"]),
-        ptr(score), ptr(ei), ptr(ek), ptr(dirs), int(with_dirs), dev.index,
+        ptr(score), ptr(ei), ptr(ek), ptr(dirs), int(with_dirs),
+        geo.lpt, int(geo.warp_per_pair), geo.threads, dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(lib, rc, "dp_row launch")
@@ -288,15 +345,17 @@ def _declare(lib):
         v, i,                           # table, A
         i, i, i, i, i,                  # B, LS, LT, W, flags
         f, f, f,                        # go, ge, go + ge
-        v, v, v, v, i, i, v,            # score, ei, ek, dirs, with_dirs,
-    ]                                   # device, stream
+        v, v, v, v, i,                  # score, ei, ek, dirs, with_dirs
+        i, i, i,                        # lpt, warp_per_pair, threads
+        i, v,                           # device, stream
+    ]
 
 
 def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
-         flags, w_eff, A, with_dirs, device):
+         flags, w_eff, A, with_dirs, device, **engine_kw):
     g = _prepare(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, W=W,
                  subst=subst, go=go, ge=ge, A=A, device=device)
-    score, ei, ek, dirs = engine(g, flags, with_dirs)
+    score, ei, ek, dirs = engine(g, flags, with_dirs, **engine_kw)
     ej = torch.where(ei < 0, -1, ei - g["dmax"] + ek)
     if dirs is None:
         dirs = torch.empty((0,), dtype=torch.uint8, device=device)
@@ -307,7 +366,7 @@ def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
 def banded_dp_row(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
                   go: float, ge: float, flags: ModeFlags, w_eff=None,
                   A: int = None, with_dirs: bool = False,
-                  device="cuda") -> DPResult:
+                  device="cuda", _geometry: Geometry = None) -> DPResult:
     """Row-form banded DP over a batch of pairs.
 
     Inputs (numpy arrays, or tensors already on ``device``):
@@ -319,13 +378,17 @@ def banded_dp_row(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
 
     Returns :class:`DPResult` (contract: module docstring).  On a CUDA
     ``device`` this launches the kernel of ``csrc/dp_row.cu`` (built on
-    first use) and raises if it cannot; on the CPU it runs
-    :func:`banded_dp_row_reference`.
+    first use) in the geometry :func:`plan` picks (``_geometry`` names
+    another instance, for measurements and tests) and raises if it
+    cannot; on the CPU it runs :func:`banded_dp_row_reference`.
     """
     device = resolve_device(device)
-    engine = _sweep_cuda if device.type == "cuda" else _sweep_plain
-    return _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst,
-                go, ge, flags, w_eff, A, with_dirs, device)
+    if device.type != "cuda":
+        return _run(_sweep_plain, s_codes, t_codes, s_lens, t_lens, dmin, W,
+                    subst, go, ge, flags, w_eff, A, with_dirs, device)
+    return _run(_sweep_cuda, s_codes, t_codes, s_lens, t_lens, dmin, W,
+                subst, go, ge, flags, w_eff, A, with_dirs, device,
+                geometry=_geometry)
 
 
 def banded_dp_row_reference(s_codes, t_codes, s_lens, t_lens, dmin, *,

@@ -143,14 +143,15 @@ _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _SASS_BRA = re.compile(r"\bBRA\b[^;]*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
 
 
-def sass_step_loop(sass: str, function: str):
+def sass_step_loop(sass: str, function: str, barrier: bool = True):
     """The step loop of a kernel in ``cuobjdump -sass`` output: the
     instructions from the target of its back-branch to the branch, in
     the first function whose mangled name contains ``function``.  The
     step loop is the longest backward branch span that holds a block
-    barrier.  Returns ``{"function", "instructions", "barriers"}``
-    (a loop unrolled by n holds n barriers), or None when no such loop
-    is found."""
+    barrier (any span, for a kernel whose loop has none, with
+    ``barrier=False``).  Returns ``{"function", "instructions",
+    "barriers"}`` (a loop unrolled by n holds n barriers), or None when
+    no such loop is found."""
     name, insns, addrs, labels = None, [], {}, {}
     for line in sass.splitlines():
         m = _SASS_FUNCTION.search(line)
@@ -182,7 +183,8 @@ def sass_step_loop(sass: str, function: str):
         span = insns[t:b + 1]
         bars = sum(1 for x in span
                    if re.match(r"(@!?U?P\w+\s+)?BAR\.SYNC", x))
-        if bars and (best is None or len(span) > best["instructions"]):
+        if (bars or not barrier) and (best is None
+                                      or len(span) > best["instructions"]):
             best = {"function": name, "instructions": len(span),
                     "barriers": bars}
     return best

@@ -90,6 +90,15 @@ def mk_row_batch(rng, A=4, W=128, L=300):
     return (ss, ts, s_lens, t_lens, dmin), w_eff
 
 
+def mk_row_batch_of(rng, B, A=4, W=128, L=300):
+    """``B`` pairs of :func:`mk_row_batch`'s kind: its five pairs drawn
+    again and again, cut to ``B`` (a lone pair is its first: full
+    length, the band around the main diagonal)."""
+    parts = [mk_row_batch(rng, A=A, W=W, L=L) for _ in range(-(-B // 5))]
+    args = [np.concatenate([p[0][i] for p in parts])[:B] for i in range(5)]
+    return args, np.concatenate([p[1] for p in parts])[:B]
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0xB15EA7)
@@ -267,14 +276,20 @@ def test_extend_segments_card_matches_cpu(rng, card):
                for seg in got)
 
 
-@pytest.mark.parametrize("W", [128, 256, 1280, 2560, 4096])
+@pytest.mark.parametrize("W,B", [
+    (128, 1), (128, 5), (128, 600), (256, 1), (256, 5), (256, 600),
+    (384, 1), (512, 1), (512, 5), (512, 600), (1280, 5), (2176, 5),
+    (2560, 5), (4096, 1), (4096, 5)])
 @pytest.mark.parametrize("A", [4, 20])
-@pytest.mark.parametrize("flags", ROW_FLAGS)
-def test_dp_row_kernel_matches_plain(rng, card, flags, A, W):
-    """K4 against its twin, score-only and with directions: every flag
-    set, a 4- and a 20-letter alphabet, one, two and four lanes per
-    thread (4 to 32 warps)."""
-    args, w_eff = mk_row_batch(rng, A=A, W=W)
+@pytest.mark.parametrize("flags", FLAG_CASES)
+def test_dp_row_kernel_matches_plain(rng, card, flags, A, W, B):
+    """K4 against its twin, score-only and with directions, in the
+    geometries the planner picks for the batch: a lone pair, a handful
+    and 600 pairs (a warp per pair at W 128 and 256; from W 384 a block
+    per pair of 4 or 8 lanes a thread, its last warp's lanes past W dead
+    at W 384 and 2176); every flag set of pw._FLAGS, a 4- and a 20-letter
+    alphabet."""
+    args, w_eff = mk_row_batch_of(rng, B, A=A, W=W)
     args = [torch.as_tensor(x, device=card) for x in args]
     if A == 4:
         subst, go, ge = UNIT, -2.5, -1.0
@@ -291,6 +306,40 @@ def test_dp_row_kernel_matches_plain(rng, card, flags, A, W):
         assert dp_row.LAUNCHES == n0 + 1
         _assert_results_equal(got, want)
     assert float(got.score.max()) > 100
+
+
+@pytest.mark.parametrize("W", [128, 256])
+@pytest.mark.parametrize("geometry", [None, "one block"])
+def test_dp_row_kernel_ragged_warps_of_a_block(rng, card, W, geometry):
+    """Pairs of very different lengths (1 to 2000 rows, T from 1 to 2100)
+    in the warps of one block: 3200 pairs as the planner lays them out (4
+    a block), and 7 pairs in one block of 8 warps (a spare warp), every
+    flag set of pw._FLAGS, with and without directions."""
+    B = 3200 if geometry is None else 7
+    L = 2000
+    ss = rng.integers(0, 4, (B, L)).astype(np.int8)
+    ts = np.concatenate([ss, rng.integers(0, 4, (B, 100)).astype(np.int8)],
+                        axis=1)
+    m = rng.random(ts.shape) < 0.12
+    ts[m] = (ts[m] + 1) % 4
+    s_lens = rng.integers(1, L + 1, B).astype(np.int32)
+    s_lens[:3] = (1, L, 37)
+    t_lens = np.clip(s_lens + rng.integers(-60, 100, B), 1, L + 100
+                     ).astype(np.int32)
+    dmin = rng.integers(-W + 8, -8, B).astype(np.int32)
+    w_eff = rng.integers(W // 2, W + 1, B).astype(np.int32)
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    g = None if geometry is None else dp_row.Geometry(W // 32, True, 256)
+    for flags in FLAG_CASES:
+        for with_dirs in (False, True):
+            kw = dict(W=W, subst=UNIT, go=-2.0, ge=-1.0,
+                      flags=ModeFlags(**flags), with_dirs=with_dirs,
+                      w_eff=torch.as_tensor(w_eff, device=card), device=card)
+            got = dp_row.banded_dp_row(*args, _geometry=g, **kw)
+            _assert_results_equal(got, dp_row.banded_dp_row_reference(
+                *args, **kw))
+    assert dp_row.plan(B, W).threads == (128 if geometry is None else 32)
 
 
 def test_dp_row_kernel_ragged_and_negative_dmax(rng, card):

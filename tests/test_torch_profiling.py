@@ -57,6 +57,19 @@ def test_sass_step_loop_addresses_and_missing(name, want):
         assert loop["barriers"] == 1
 
 
+def test_sass_step_loop_without_a_barrier():
+    """A loop with no block barrier (K4's warp-per-pair row loop) is
+    found only when no barrier is asked for."""
+    name = "dp_ad_kernelILi1ELb0ELi26EE"
+    assert sass_step_loop(SASS, "dp_ad_kernelILi2E", barrier=False) == {
+        "function": "_ZN12_GLOBAL__N_112dp_ad_kernelILi2ELb0ELi26EEEvNS_4ArgsE",
+        "instructions": 2, "barriers": 1}
+    loop = sass_step_loop(SASS.replace("BAR.SYNC", "NOP"), name,
+                          barrier=False)
+    assert loop["instructions"] == 9 and loop["barriers"] == 0
+    assert sass_step_loop(SASS.replace("BAR.SYNC", "NOP"), name) is None
+
+
 def test_bound_ms_takes_the_larger_bound():
     assert bound_ms(3.35e9, 1.0, 1e12) == pytest.approx((1.0, "bytes"))
     ms, kind = bound_ms(1.0, 33.5e9, 33.5e12)
