@@ -28,10 +28,10 @@
 // so the scan is a serial max over its lanes, a 5-step __shfl_up_sync
 // scan of the 32 thread totals and an exclusive carry by one shuffle.
 // Two geometries (template parameter WPP):
-//  * a warp per pair (W = 32 * LPT, LPT 4 or 8): several pairs share a
-//    block, one warp each, and the row loop has no block barrier and no
-//    shared memory but the substitution table; the lane above lane W - 1
-//    is NEG, so the neighbour exchange is one shuffle;
+//  * a warp per pair (W = 32 * LPT, LPT 4 or 8), a block of one warp:
+//    the row loop has no block barrier and no shared memory but the
+//    substitution table; the lane above lane W - 1 is NEG, so the
+//    neighbour exchange is one shuffle;
 //  * a block per pair (the fewest warps that cover W, lanes past W dead;
 //    for wide bands and for a lone pair, which wants few warps on its
 //    chain): one __syncthreads a row.
@@ -184,12 +184,12 @@ __device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t* pk) {
         *reinterpret_cast<uint2*>(p) = make_uint2(pk[0], pk[1]);
 }
 
-// WPP: a warp per pair (W = 32 * LPT, blockDim.x / 32 pairs a block);
-// else a block per pair of whole warps, the lanes from W up to
-// blockDim.x * LPT dead.  DIRS: write the plane and track the end cell.
-// MODE: the flags, or RUNTIME to read g.flags.
+// WPP: a warp per pair (W = 32 * LPT, a block of one warp); else a block
+// per pair of whole warps, the lanes from W up to blockDim.x * LPT dead.
+// DIRS: write the plane and track the end cell.  MODE: the flags, or
+// RUNTIME to read g.flags.
 template <int LPT, bool WPP, bool DIRS, int MODE>
-__global__ void __launch_bounds__(WPP ? 256 : 512)
+__global__ void __launch_bounds__(WPP ? 32 : 512)
 dp_row_kernel(Args g) {
     static_assert(LPT == 4 || LPT == 8, "LPT");
     extern __shared__ float smem[];
@@ -208,10 +208,7 @@ dp_row_kernel(Args g) {
     __syncthreads();
 
     const int lane = tid & 31;
-    const int b = WPP ? blockIdx.x * (blockDim.x >> 5) + (tid >> 5)
-                      : blockIdx.x;
-    if (b >= g.B) return;          // the last block's spare warps (WPP)
-    const int t = WPP ? lane : tid;           // thread within the pair
+    const int b = blockIdx.x;
     const int w = WPP ? 0 : tid >> 5;         // warp within the pair
     const int nw = WPP ? 1 : blockDim.x >> 5;
     const bool has_next = !WPP && w + 1 < nw; // a warp of the pair above
@@ -229,7 +226,7 @@ dp_row_kernel(Args g) {
     const bool track_end = DIRS && (track_local || track_col);
     const float go = g.go, ge = g.ge;
     const float lfloor = local_start ? 0.0f : NINF;   // H_pre's local floor
-    const int k0 = t * LPT;
+    const int k0 = tid * LPT;
     // this warp's top lane
     const int kt = k0 - lane * LPT + 32 * LPT - 1;
 
@@ -486,39 +483,38 @@ dp_row_kernel(Args g) {
         ei = (int)((key >> 13) / 3);
         ek = (int)(key & 8191);
     }
-    if (t == 0) {
+    if (tid == 0) {
         g.score[b] = score;
         g.ei[b] = ei;
         g.ek[b] = ek;
     }
 }
 
+// a block per pair
 template <int LPT, bool WPP, bool DIRS, int MODE>
-void launch_one(const Args& g, int blocks, int threads, size_t smem,
-                cudaStream_t st) {
-    dp_row_kernel<LPT, WPP, DIRS, MODE><<<blocks, threads, smem, st>>>(g);
+void launch_one(const Args& g, int threads, size_t smem, cudaStream_t st) {
+    dp_row_kernel<LPT, WPP, DIRS, MODE><<<g.B, threads, smem, st>>>(g);
 }
 
 template <int LPT, bool WPP, bool DIRS>
-void launch_mode(const Args& g, int blocks, int threads, size_t smem,
-                 cudaStream_t st) {
+void launch_mode(const Args& g, int threads, size_t smem, cudaStream_t st) {
     if (g.flags == LOCAL)
-        launch_one<LPT, WPP, DIRS, LOCAL>(g, blocks, threads, smem, st);
+        launch_one<LPT, WPP, DIRS, LOCAL>(g, threads, smem, st);
     else if (g.flags == GLOBAL)
-        launch_one<LPT, WPP, DIRS, GLOBAL>(g, blocks, threads, smem, st);
+        launch_one<LPT, WPP, DIRS, GLOBAL>(g, threads, smem, st);
     else if (g.flags == OVERLAP)
-        launch_one<LPT, WPP, DIRS, OVERLAP>(g, blocks, threads, smem, st);
+        launch_one<LPT, WPP, DIRS, OVERLAP>(g, threads, smem, st);
     else
-        launch_one<LPT, WPP, DIRS, RUNTIME>(g, blocks, threads, smem, st);
+        launch_one<LPT, WPP, DIRS, RUNTIME>(g, threads, smem, st);
 }
 
 template <int LPT, bool WPP>
-void launch(const Args& g, bool with_dirs, int blocks, int threads,
-            size_t smem, cudaStream_t st) {
+void launch(const Args& g, bool with_dirs, int threads, size_t smem,
+            cudaStream_t st) {
     if (with_dirs)
-        launch_mode<LPT, WPP, true>(g, blocks, threads, smem, st);
+        launch_mode<LPT, WPP, true>(g, threads, smem, st);
     else
-        launch_mode<LPT, WPP, false>(g, blocks, threads, smem, st);
+        launch_mode<LPT, WPP, false>(g, threads, smem, st);
 }
 
 }  // namespace
@@ -531,29 +527,27 @@ extern "C" const char* bst_cuda_error_string(int code) {
 // and returns cudaGetLastError().  All pointers are device pointers;
 // W must be a multiple of 128 and at most 4096, A at most 64.  The
 // geometry: `lpt` (4 or 8) lanes a thread; with `warp_per_pair` a warp
-// per pair (W = 32 * lpt, threads / 32 pairs a block, at most 256
-// threads), else a block per pair of the fewest warps that cover W (at
-// most 512 threads).  The dirs plane [B, LS, W] must be zeroed by the
-// caller: rows past a pair's length are not written.
+// per pair (W = 32 * lpt, a block of one warp), else a block per pair of
+// the fewest warps that cover W (at most 512 threads).  The dirs plane
+// [B, LS, W] must be zeroed by the caller: rows past a pair's length are
+// not written.
 extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
                           const void* t_lens, const void* dmax,
                           const void* w_eff, const void* table, int A,
                           int B, int LS, int LT, int W, int flags,
                           float go, float ge, float gg, void* score,
                           void* ei, void* ek, void* dirs, int with_dirs,
-                          int lpt, int warp_per_pair, int threads,
-                          int device, void* stream) {
+                          int lpt, int warp_per_pair, int device,
+                          void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (W < 128 || W % 128 || W > 4096 || A < 1 || A > 64
-        || threads < 32 || threads % 32)
+    if (W < 128 || W % 128 || W > 4096 || A < 1 || A > 64)
         return (int)cudaErrorInvalidValue;
     const bool wpp = warp_per_pair != 0;
-    if ((lpt != 4 && lpt != 8)
-        || (wpp ? W != 32 * lpt || threads > 256
-                : threads != (W + 32 * lpt - 1) / (32 * lpt) * 32
-                  || threads > 512))
+    if ((lpt != 4 && lpt != 8) || (wpp && W != 32 * lpt))
         return (int)cudaErrorInvalidConfiguration;
+    const int threads = wpp ? 32 : (W + 32 * lpt - 1) / (32 * lpt) * 32;
+    if (threads > 512) return (int)cudaErrorInvalidConfiguration;
     if (B == 0) return 0;
     Args g;
     g.s = static_cast<const int8_t*>(s);
@@ -576,14 +570,12 @@ extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bool d = with_dirs != 0;
     if (wpp) {
-        const int ppb = threads / 32;
-        const int blocks = (B + ppb - 1) / ppb;
-        if (lpt == 4) launch<4, true>(g, d, blocks, threads, smem, st);
-        else launch<8, true>(g, d, blocks, threads, smem, st);
+        if (lpt == 4) launch<4, true>(g, d, threads, smem, st);
+        else launch<8, true>(g, d, threads, smem, st);
     } else if (lpt == 4) {
-        launch<4, false>(g, d, B, threads, smem, st);
+        launch<4, false>(g, d, threads, smem, st);
     } else {
-        launch<8, false>(g, d, B, threads, smem, st);
+        launch<8, false>(g, d, threads, smem, st);
     }
     return (int)cudaGetLastError();
 }

@@ -47,8 +47,8 @@ import torch
 from .banded_dp import (NEG, DPResult, ModeFlags, on_device, resolve_device,
                         shift_lanes)
 
-__all__ = ["banded_dp_row", "banded_dp_row_reference", "plan", "Geometry",
-           "LAUNCHES"]
+__all__ = ["banded_dp_row", "banded_dp_row_reference", "plan", "sm_count",
+           "Geometry", "LAUNCHES"]
 
 # CUDA kernel launches made by banded_dp_row (never by the plain twin)
 LAUNCHES = 0
@@ -57,57 +57,51 @@ MAX_W = 4096      # kernel: at most 512 threads x 8 lanes each
 MAX_A = 64        # kernel: the A x A table lives in shared memory
 
 # The kernel's instances (csrc/dp_row.cu): lanes a thread owns, for a
-# warp per pair (W = 32 * LPT) and for a block per pair (the fewest warps
-# that cover W, at most MAX_BLOCK_THREADS threads).
+# warp per pair (W = 32 * LPT, one warp a block) and for a block per pair
+# (the fewest warps that cover W, at most MAX_BLOCK_THREADS threads).
 WARP_LPT = (4, 8)
 BLOCK_LPT = (4, 8)
 MAX_BLOCK_THREADS = 512
-SMS = 132                 # the H100's streaming multiprocessors
-# a warp per pair: pairs share a block (up to PAIRS_PER_BLOCK) once every
-# SM holds WARPS_PER_SM of them
-PAIRS_PER_BLOCK, WARPS_PER_SM = 4, 8
 
 _NEGF = np.float32(NEG)
 
 
 class Geometry(NamedTuple):
     """A launch of the kernel: ``lpt`` consecutive lanes a thread, a warp
-    per pair (``threads / 32`` pairs a block) or a block per pair."""
+    per pair (one a block) or a block per pair."""
 
     lpt: int
     warp_per_pair: bool
-    threads: int
+
+    def threads(self, W: int) -> int:
+        """Threads a block: one warp, or the fewest whole warps that cover
+        W (the last one's lanes past W dead)."""
+        return 32 if self.warp_per_pair else -(-W // (32 * self.lpt)) * 32
 
     def check(self, W: int) -> None:
-        """Raise unless the kernel has this instance and it owns each of W
-        lanes once (a block per pair: whole warps, the last one's lanes
-        past W dead)."""
+        """Raise unless the kernel has this instance for W lanes."""
         if self.warp_per_pair:
-            ok = (self.lpt in WARP_LPT and W == 32 * self.lpt
-                  and self.threads % 32 == 0 and 32 <= self.threads <= 256)
+            ok = self.lpt in WARP_LPT and W == 32 * self.lpt
         else:
             ok = (self.lpt in BLOCK_LPT
-                  and self.threads == -(-W // (32 * self.lpt)) * 32
-                  and self.threads <= MAX_BLOCK_THREADS)
+                  and self.threads(W) <= MAX_BLOCK_THREADS)
         if not ok:
             raise ValueError("the kernel has no instance %r for W %d"
                              % (self, W))
 
 
-def plan(B: int, W: int, with_dirs: bool = False) -> Geometry:
-    """The kernel's geometry for ``B`` pairs of width ``W``.  Where a warp
-    can own the whole row (W 128 or 256: 4 or 8 lanes a thread) it does,
-    whatever the batch: no block barrier in the row loop; pairs share a
-    block once every SM holds :data:`WARPS_PER_SM`.  Wider bands take a
-    block per pair, one barrier a row, 8 lanes a thread (fewest warps),
-    except with directions on fewer pairs than SMs: there 4 (8 a thread
-    issue the longer directions code on too few schedulers)."""
+def plan(B: int, W: int, with_dirs: bool = False, *, sms: int) -> Geometry:
+    """The kernel's geometry for ``B`` pairs of width ``W`` on a card of
+    ``sms`` streaming multiprocessors.  Where a warp can own the whole row
+    (W 128 or 256: 4 or 8 lanes a thread) it does, whatever the batch: no
+    block barrier in the row loop.  Wider bands take a block per pair,
+    one barrier a row, 8 lanes a thread (fewest warps), except with
+    directions on fewer pairs than SMs: there 4 (8 a thread issue the
+    longer directions code on too few schedulers)."""
     if W % 32 == 0 and W // 32 in WARP_LPT:
-        ppb = max(1, min(PAIRS_PER_BLOCK, -(-B // (SMS * WARPS_PER_SM))))
-        return Geometry(W // 32, True, 32 * ppb)
+        return Geometry(W // 32, True)
     fits4 = W <= 4 * MAX_BLOCK_THREADS
-    lpt = 4 if with_dirs and B < SMS and fits4 else 8
-    return Geometry(lpt, False, -(-W // (32 * lpt)) * 32)
+    return Geometry(4 if with_dirs and B < sms and fits4 else 8, False)
 
 
 def _table(subst: np.ndarray) -> np.ndarray:
@@ -312,10 +306,11 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
     from ..native import _flags_of
 
     B, LS, W = g["B"], g["LS"], g["W"]
-    geo = plan(B, W, with_dirs) if geometry is None else geometry
+    dev = g["s_codes"].device
+    geo = (plan(B, W, with_dirs, sms=sm_count(dev)) if geometry is None
+           else geometry)
     geo.check(W)
     lib = _build.load("dp_row", _declare)
-    dev = g["s_codes"].device
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     ei = torch.empty((B,), dtype=torch.int32, device=dev)
     ek = torch.empty_like(ei)
@@ -329,12 +324,18 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
         ptr(g["table"]), g["A"], B, LS, g["LT"], W, _flags_of(flags),
         f(g["go"]), f(g["ge"]), f(g["gg"]),
         ptr(score), ptr(ei), ptr(ek), ptr(dirs), int(with_dirs),
-        geo.lpt, int(geo.warp_per_pair), geo.threads, dev.index,
+        geo.lpt, int(geo.warp_per_pair), dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(lib, rc, "dp_row launch")
     LAUNCHES += 1
     return score, ei, ek, dirs
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (the planner's
+    measure of a batch that fills the card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _declare(lib):
@@ -346,7 +347,7 @@ def _declare(lib):
         i, i, i, i, i,                  # B, LS, LT, W, flags
         f, f, f,                        # go, ge, go + ge
         v, v, v, v, i,                  # score, ei, ek, dirs, with_dirs
-        i, i, i,                        # lpt, warp_per_pair, threads
+        i, i,                           # lpt, warp_per_pair
         i, v,                           # device, stream
     ]
 

@@ -150,8 +150,11 @@ def sass_step_loop(sass: str, function: str, barrier: bool = True):
     step loop is the longest backward branch span that holds a block
     barrier (any span, for a kernel whose loop has none, with
     ``barrier=False``).  Returns ``{"function", "instructions",
-    "barriers"}`` (a loop unrolled by n holds n barriers), or None when
-    no such loop is found."""
+    "barriers", "spills"}`` (a loop unrolled by n holds n barriers;
+    ``spills`` has one entry per local-memory load or store, ``LDL`` /
+    ``STL``, of the function: the instructions of the shortest loop that
+    holds it, 0 outside every loop), or None when no such loop is
+    found."""
     name, insns, addrs, labels = None, [], {}, {}
     for line in sass.splitlines():
         m = _SASS_FUNCTION.search(line)
@@ -171,7 +174,7 @@ def sass_step_loop(sass: str, function: str, barrier: bool = True):
         if m:
             addrs[int(m.group(1), 16)] = len(insns)
             insns.append(m.group(2).strip())
-    best = None
+    best, loops = None, []
     for b, insn in enumerate(insns):
         m = _SASS_BRA.search(insn)
         if not m:
@@ -181,12 +184,18 @@ def sass_step_loop(sass: str, function: str, barrier: bool = True):
         if t is None or t > b:
             continue
         span = insns[t:b + 1]
+        loops.append((t, b))
         bars = sum(1 for x in span
                    if re.match(r"(@!?U?P\w+\s+)?BAR\.SYNC", x))
         if (bars or not barrier) and (best is None
                                       or len(span) > best["instructions"]):
             best = {"function": name, "instructions": len(span),
                     "barriers": bars}
+    if best is not None:
+        best["spills"] = [
+            min((b - t + 1 for t, b in loops if t <= x <= b), default=0)
+            for x, insn in enumerate(insns)
+            if re.match(r"(@!?U?P\w+\s+)?(LDL|STL)\b", insn)]
     return best
 
 

@@ -1,7 +1,8 @@
 """Times the row DP kernel K4 (csrc/dp_row.cu) on one card.
 
-    python3 chip_k4.py           # everything below
-    python3 chip_k4.py --lone    # the lone 100 kbp pair (B_LOCAL) only
+    python3 chip_k4.py                # everything below
+    python3 chip_k4.py --lone         # the lone 100 kbp pair (B_LOCAL) only
+    python3 chip_k4.py --sass PATH    # also write the kernel's SASS to PATH
 
 K4 by CUDA events (mean of 3 after a warm-up) at two shapes:
 
@@ -18,10 +19,11 @@ K4 by CUDA events (mean of 3 after a warm-up) at two shapes:
 Where the checkout's ``ops/dp_row`` has a planner (``plan``), it also
 times the kernel's other geometries: the lone pair with each block
 instance's lanes a thread (4 and 8: 4 and 2 warps), the score bench as
-a warp per pair (1, 2, 4 and 8 pairs a block) and as a block per pair,
-batches of 1-4096 pairs at W 128 and 256 in both geometries, and of
-1-1056 pairs at W 512 in each block geometry.  It uses only what
-every checkout of the port has, so one call can time a parent commit
+a warp per pair and as a block per pair, batches of 1-4096 pairs at W
+128 and 256 in both geometries, and of 1-1056 pairs at W 512 in each
+block geometry; and each instance's registers, spills and SASS
+instructions a row (with the loop that holds each spill).  It uses only
+what every checkout of the port has, so one call can time a parent commit
 and its change: copy this file into each checkout and run it there.
 Prints the card's name and power limit last; exits 1 without a card.
 """
@@ -47,11 +49,16 @@ def main():
     from biseqt_tpu_torch.profiling import FP32_OPS_PER_S, bound_ms, cuda_ms
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
-    lone_only = "--lone" in sys.argv[1:]
-    planner = getattr(dp_row, "plan", None)
+    argv = sys.argv[1:]
+    lone_only = "--lone" in argv
+    sass_path = argv[argv.index("--sass") + 1] if "--sass" in argv else None
     dev = torch.device("cuda", 0)
+    planner = None
+    if hasattr(dp_row, "plan"):
+        sms = dp_row.sm_count(dev)
+        planner = lambda B, W, d=False: dp_row.plan(B, W, d, sms=sms)
     if not lone_only:
-        sass_report(dp_row)
+        sass_report(dp_row, sass_path)
     A4 = Alphabet("ACGT")
     subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
 
@@ -84,11 +91,12 @@ def main():
                  dirs_ms * 1e3 / rows))
         if planner is not None and alntype == pw.B_LOCAL:
             for lpt in dp_row.BLOCK_LPT:
-                g = block(dp_row, lpt, rkw["W"])
+                g = dp_row.Geometry(lpt, False)
                 g_ms = k4_ms(on, solve_kw, g)
                 print("k4 100 kbp pair %s, %d warps of %d lanes a thread:"
                       " score-only %.3f ms (%.4f us a row), with directions"
-                      " %.3f ms" % (alntype, g.threads // 32, lpt, g_ms,
+                      " %.3f ms" % (alntype, g.threads(rkw["W"]) // 32, lpt,
+                                    g_ms,
                                     g_ms * 1e3 / rows, k4_ms(on, rkw, g)))
         if lone_only:
             continue
@@ -138,8 +146,8 @@ def main():
                               band_cells / ms / 1e6, bound, bound_by,
                               100 * bound / ms, nd, d_ms))
     if planner is not None:
-        geos = [dp_row.Geometry(4, True, 32 * p) for p in (1, 2, 4, 8)]
-        geos += [block(dp_row, lpt, sb["W"]) for lpt in dp_row.BLOCK_LPT]
+        geos = [dp_row.Geometry(4, True)]
+        geos += [dp_row.Geometry(lpt, False) for lpt in dp_row.BLOCK_LPT]
         for g in geos:
             print("k4 score bench in %s: score-only %.3f ms, with directions"
                   " %.3f ms" % (g, k4_ms(on, rkw, g), k4_ms(on_d, dkw, g)))
@@ -156,10 +164,9 @@ def main():
                          for d in (False, True) if not (d and n > 264)]
             else:
                 cases = [(n, False) for n in SWEEP_B]
-            geos = [block(dp_row, lpt, W) for lpt in dp_row.BLOCK_LPT]
+            geos = [dp_row.Geometry(lpt, False) for lpt in dp_row.BLOCK_LPT]
             if W < 512:
-                geos += [dp_row.Geometry(W // 32, True, 32),
-                         dp_row.Geometry(W // 32, True, 128)]
+                geos.append(dp_row.Geometry(W // 32, True))
             for n, d in cases:
                 sub = [v[:n] for v in won]
                 nkw = dict(wkw, w_eff=wkw["w_eff"][:n], with_dirs=d)
@@ -174,9 +181,10 @@ def main():
     print(card_line())
 
 
-def sass_report(dp_row):
+def sass_report(dp_row, path=None):
     """Registers and spills of each instance (``-Xptxas -v``) and the
-    SASS instructions of its row loop (``cuobjdump -sass``)."""
+    SASS instructions of its row loop (``cuobjdump -sass``), written
+    whole to ``path`` where one is given."""
     from biseqt_tpu_torch import _build
     from biseqt_tpu_torch.profiling import cuobjdump_sass, sass_step_loop
 
@@ -194,6 +202,9 @@ def sass_report(dp_row):
     except (OSError, subprocess.SubprocessError) as e:
         print("k4 SASS: not measured (cuobjdump failed: %s)" % e)
         return
+    if path:
+        with open(path, "w") as f:
+            f.write(sass)
     for name in sorted(set(n for n in sass.split()
                            if "dp_row_kernel" in n)):
         try:
@@ -201,25 +212,19 @@ def sass_report(dp_row):
         except TypeError:          # a parser that wants a barrier
             loop = sass_step_loop(sass, name)
         if loop is not None:
-            print("k4 SASS row loop of %s: %d instructions, %d barriers"
-                  % (name, loop["instructions"], loop["barriers"]))
-
-
-def block(dp_row, lpt, W):
-    """A block per pair with ``lpt`` lanes a thread: the fewest warps
-    that cover W."""
-    return dp_row.Geometry(lpt, False, -(-W // (32 * lpt)) * 32)
+            print("k4 SASS row loop of %s: %d instructions, %d barriers;"
+                  " spills by the instructions of the loop that holds each"
+                  " (0: none) %s" % (name, loop["instructions"],
+                                     loop["barriers"],
+                                     loop.get("spills", "not counted")))
 
 
 def plan_text(planner, B, W):
     """The planner's geometries for a call, where the checkout has one."""
     if planner is None:
         return ""
-    try:
-        return "; solve %s, with directions %s" % (planner(B, W),
-                                                   planner(B, W, True))
-    except TypeError:              # a planner of (B, W) alone
-        return "; %s" % (planner(B, W),)
+    return "; solve %s, with directions %s" % (planner(B, W),
+                                               planner(B, W, True))
 
 
 def card_line():

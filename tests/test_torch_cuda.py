@@ -309,13 +309,11 @@ def test_dp_row_kernel_matches_plain(rng, card, flags, A, W, B):
 
 
 @pytest.mark.parametrize("W", [128, 256])
-@pytest.mark.parametrize("geometry", [None, "one block"])
-def test_dp_row_kernel_ragged_warps_of_a_block(rng, card, W, geometry):
+@pytest.mark.parametrize("B", [7, 3200])
+def test_dp_row_kernel_ragged_batch(rng, card, W, B):
     """Pairs of very different lengths (1 to 2000 rows, T from 1 to 2100)
-    in the warps of one block: 3200 pairs as the planner lays them out (4
-    a block), and 7 pairs in one block of 8 warps (a spare warp), every
+    side by side, a warp each: 7 pairs (fewer than SMs) and 3200, every
     flag set of pw._FLAGS, with and without directions."""
-    B = 3200 if geometry is None else 7
     L = 2000
     ss = rng.integers(0, 4, (B, L)).astype(np.int8)
     ts = np.concatenate([ss, rng.integers(0, 4, (B, 100)).astype(np.int8)],
@@ -330,16 +328,16 @@ def test_dp_row_kernel_ragged_warps_of_a_block(rng, card, W, geometry):
     w_eff = rng.integers(W // 2, W + 1, B).astype(np.int32)
     args = [torch.as_tensor(x, device=card)
             for x in (ss, ts, s_lens, t_lens, dmin)]
-    g = None if geometry is None else dp_row.Geometry(W // 32, True, 256)
     for flags in FLAG_CASES:
         for with_dirs in (False, True):
             kw = dict(W=W, subst=UNIT, go=-2.0, ge=-1.0,
                       flags=ModeFlags(**flags), with_dirs=with_dirs,
                       w_eff=torch.as_tensor(w_eff, device=card), device=card)
-            got = dp_row.banded_dp_row(*args, _geometry=g, **kw)
+            got = dp_row.banded_dp_row(*args, **kw)
             _assert_results_equal(got, dp_row.banded_dp_row_reference(
                 *args, **kw))
-    assert dp_row.plan(B, W).threads == (128 if geometry is None else 32)
+    assert dp_row.plan(B, W, sms=dp_row.sm_count(card)) == dp_row.Geometry(
+        W // 32, True)
 
 
 def test_dp_row_kernel_ragged_and_negative_dmax(rng, card):

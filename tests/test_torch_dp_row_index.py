@@ -31,21 +31,22 @@ NINF = np.float32(-np.inf)
 @pytest.mark.parametrize("W", [128, 256, 384, 512, 1024, 2048, 2176, 4096])
 def test_plan_owns_every_lane_once(W, B, with_dirs):
     """The planner's geometry is an instance the kernel has, its blocks
-    fit the card's limit, every pair gets one warp or one block, and
-    every lane of a pair is owned by exactly one thread (a block's last
-    warp may own dead lanes past W, less than a warp's worth)."""
-    g = dp_row.plan(B, W, with_dirs)
+    fit the card's limit, every pair gets one block (of one warp for a
+    warp per pair), and every lane of a pair is owned by exactly one
+    thread (a block's last warp may own dead lanes past W, less than a
+    warp's worth).  Below as many pairs as SMs, with directions, a wide
+    band takes 4 lanes a thread."""
+    g = dp_row.plan(B, W, with_dirs, sms=132)
     g.check(W)
-    assert 32 <= g.threads <= 1024 and g.threads % 32 == 0
+    per_pair = g.threads(W)
+    assert 32 <= per_pair <= 1024 and per_pair % 32 == 0
     if g.warp_per_pair:
         assert g.lpt in dp_row.WARP_LPT and W == 32 * g.lpt
-        per_pair, ppb = 32, g.threads // 32
-        # a lone pair or a few keep a warp a block, one block an SM
-        assert ppb == 1 or B > dp_row.SMS * dp_row.WARPS_PER_SM
+        assert per_pair == 32
     else:
         assert g.lpt in dp_row.BLOCK_LPT
-        assert g.threads <= dp_row.MAX_BLOCK_THREADS
-        per_pair = g.threads
+        assert per_pair <= dp_row.MAX_BLOCK_THREADS
+        assert g.lpt == (4 if with_dirs and B < 132 and W <= 2048 else 8)
     lanes = np.array([t * g.lpt + m for t in range(per_pair)
                       for m in range(g.lpt)])
     assert len(set(lanes)) == len(lanes) and set(range(W)) <= set(lanes)
@@ -57,16 +58,18 @@ def test_plan_owns_every_lane_once(W, B, with_dirs):
     (4096, 8, 512)])
 def test_check_refuses_what_the_kernel_has_not(W, lpt, threads):
     """A block per pair is the fewest whole warps that cover W; the
-    kernel has 4 and 8 lanes a thread and at most 512 threads."""
-    dp_row.Geometry(lpt, False, threads).check(W)
-    for bad in (dp_row.Geometry(lpt, False, threads + 32),
-                dp_row.Geometry(lpt, False, threads - 16),
-                dp_row.Geometry(2, False, W // 2),
-                dp_row.Geometry(16, True, 32)):
+    kernel has 4 and 8 lanes a thread, at most 512 threads, and a warp
+    per pair only where 32 threads own W."""
+    g = dp_row.Geometry(lpt, False)
+    g.check(W)
+    assert g.threads(W) == threads
+    for bad in (dp_row.Geometry(2, False), dp_row.Geometry(16, True),
+                dp_row.Geometry(4 if W > 128 else 8, True)):
         with pytest.raises(ValueError):
             bad.check(W)
+    assert dp_row.Geometry(W // 32, True).threads(W) == 32
     with pytest.raises(ValueError):
-        dp_row.Geometry(4, False, 544).check(2176)
+        dp_row.Geometry(4, False).check(2176)     # 544 threads
 
 
 def twin_rows(monkeypatch, args, w_eff, W, flags, with_dirs):

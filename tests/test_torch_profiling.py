@@ -43,7 +43,7 @@ def test_sass_step_loop_finds_the_barrier_loop():
     loop = sass_step_loop(SASS, "dp_ad_kernelILi1ELb0ELi26EE")
     assert loop == {
         "function": "_ZN12_GLOBAL__N_112dp_ad_kernelILi1ELb0ELi26EEEvNS_4ArgsE",
-        "instructions": 9, "barriers": 2}
+        "instructions": 9, "barriers": 2, "spills": []}
 
 
 @pytest.mark.parametrize("name,want", [
@@ -63,11 +63,31 @@ def test_sass_step_loop_without_a_barrier():
     name = "dp_ad_kernelILi1ELb0ELi26EE"
     assert sass_step_loop(SASS, "dp_ad_kernelILi2E", barrier=False) == {
         "function": "_ZN12_GLOBAL__N_112dp_ad_kernelILi2ELb0ELi26EEEvNS_4ArgsE",
-        "instructions": 2, "barriers": 1}
+        "instructions": 2, "barriers": 1, "spills": []}
     loop = sass_step_loop(SASS.replace("BAR.SYNC", "NOP"), name,
                           barrier=False)
     assert loop["instructions"] == 9 and loop["barriers"] == 0
     assert sass_step_loop(SASS.replace("BAR.SYNC", "NOP"), name) is None
+
+
+def test_sass_step_loop_places_each_spill():
+    """Each local-memory load or store is reported with the length of the
+    shortest loop that holds it: 0 before the loops, the outer loop's for
+    a reload once an outer iteration, the inner one's inside it."""
+    sass = """
+		Function : _ZN12_GLOBAL__N_113dp_row_kernelILi8ELb1ELb0ELi10EEEvNS_4ArgsE
+        /*0000*/                   STL [R1], R8 ;
+        /*0010*/                   LDL R9, [R1] ;
+        /*0020*/                   LDL R2, [R1+0x4] ;
+        /*0030*/                   FADD R3, R2, R9 ;
+        /*0040*/               @P0 BRA 0x20 ;
+        /*0050*/                   ISETP.GE.AND P1, PT, R0, UR4, PT ;
+        /*0060*/               @P1 BRA 0x10 ;
+        /*0070*/                   EXIT ;
+"""
+    loop = sass_step_loop(sass, "dp_row_kernel", barrier=False)
+    assert loop["instructions"] == 6 and loop["barriers"] == 0
+    assert loop["spills"] == [0, 6, 3]
 
 
 def test_bound_ms_takes_the_larger_bound():
