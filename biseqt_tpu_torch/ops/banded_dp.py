@@ -84,7 +84,10 @@ def on_device(x, dtype, device: torch.device) -> torch.Tensor:
             raise ValueError("tensor on %s passed with device=%s"
                              % (x.device, device))
         return x.to(dtype)
-    return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+    x = np.asarray(x)
+    if not x.flags.writeable:     # a Sequence's frozen codes
+        x = x.copy()
+    return torch.as_tensor(x, device=device).to(dtype)
 
 
 def _host(x) -> np.ndarray:

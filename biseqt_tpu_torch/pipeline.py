@@ -2,8 +2,10 @@
 
 The port of :func:`biseqt_tpu.pipeline.extend_segments` (the
 reference's ``pwlib`` solve + traceback contract as this framework
-serves it).  Every candidate's (d, a) rectangle is cut out of both
-sequences, segments are grouped by bucketed cutout shape, and each
+serves it) and of :func:`biseqt_tpu.pipeline.discover_and_extend`,
+Word-Blot discovery (:mod:`.blot`) and extension in one call.  Every
+candidate's (d, a) rectangle is cut out of both sequences, segments
+are grouped by bucketed cutout shape, and each
 group is extended in launches of the antidiagonal DP kernel
 (:mod:`.ops.dp_ad`).  With transcripts, each launch writes the
 direction plane, the walk kernel (:mod:`.ops.walk`) turns it into a
@@ -24,13 +26,14 @@ import numpy as np
 import torch
 
 from . import native
+from .blot import WordBlot
 from .ops.banded_dp import ModeFlags, resolve_device
 from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
 
-__all__ = ["extend_segments", "cut_segment", "plan_launches",
-           "launch_inputs", "PAD_RADIUS", "PAD_A"]
+__all__ = ["extend_segments", "discover_and_extend", "cut_segment",
+           "plan_launches", "launch_inputs", "PAD_RADIUS", "PAD_A"]
 
 # default growth of a segment's rectangle: discovery quantizes to coarse
 # cells, and the alignment must be free to extend past the seed core
@@ -291,3 +294,31 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
             seg["mutate_start"] = int(cut[b][2] + sj_all[b])
         out.append(seg)
     return out
+
+
+def discover_and_extend(S, T, *, wordlen: int = 8, K_min: int = 100,
+                        p_min: float = 0.6, g_max: float = 0.2, subst=None,
+                        go_score=-3.0, ge_score=-1.0, use_pallas: bool = None,
+                        with_transcripts: bool = False, device="cuda"):
+    """Word-Blot discovery + batched banded extension, one call.
+
+    Returns the discovered segments with their DP ``score`` (plus the
+    MSID ``transcript`` and start coordinates with ``with_transcripts``),
+    sorted by score, highest first.  In transcript mode a segment longer
+    than the direction plane's budget comes back as several a-windows:
+    join on ``source_index``.
+
+    ``device="cuda"`` (the default) runs the seed join and statistics on
+    the card and extends with the hand-written kernels; ``"cpu"`` runs
+    them and the kernels' plain twins on the host.  ``use_pallas``
+    chooses among the JAX package's engines, which give the same
+    results; it is kept for that signature, and ``device`` alone
+    chooses the port's.
+    """
+    device = resolve_device(device)
+    wb = WordBlot(S, T, wordlen=wordlen, g_max=g_max, device=device)
+    segments = list(wb.similar_segments(K_min=K_min, p_min=p_min))
+    extended = extend_segments(
+        S, T, segments, subst=subst, go_score=go_score, ge_score=ge_score,
+        with_transcripts=with_transcripts, device=device)
+    return sorted(extended, key=lambda s: -s["score"])

@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import pw
+from biseqt_tpu_torch import blot, pw
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
 from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
-from biseqt_tpu_torch.pipeline import extend_segments
+from biseqt_tpu_torch.pipeline import discover_and_extend, extend_segments
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 pytestmark = pytest.mark.cuda
@@ -507,3 +507,81 @@ def test_entry_points_default_to_the_card(rng, card):
                     diag_range=(-10, 10), backend="pallas_row") as aln:
         assert aln.solve() == 300.0
     assert dp_row.LAUNCHES == n_row + 1
+    n_dp = dp_ad.LAUNCHES
+    out = discover_and_extend(S, S, K_min=100, with_transcripts=True)
+    assert dp_ad.LAUNCHES > n_dp and out[0]["score"] == 300.0
+    assert blot.WordBlot(S, S).seed_index.device.type == "cuda"
+
+
+def _planted_genome_pair(rng, size=200_000, blocks=6, block=12_000):
+    """Two random sequences of ``size`` letters sharing ``blocks``
+    homologous blocks (10% substitutions, a few short indels) at shuffled
+    places."""
+    S = rng.integers(0, 4, size).astype(np.int8)
+    T = rng.integers(0, 4, size).astype(np.int8)
+    slots = size // blocks
+    for k, dst in enumerate(rng.permutation(blocks)):
+        core = S[k * slots + 1000:k * slots + 1000 + block].copy()
+        hit = rng.random(block) < 0.1
+        core[hit] = (core[hit] + rng.integers(1, 4, hit.sum())) % 4
+        for p in np.sort(rng.choice(block - 200, 4, replace=False)):
+            n = int(rng.integers(1, 4))
+            core = (np.concatenate([core[:p], core[p + n:]]) if p % 2
+                    else np.concatenate([core[:p], rng.integers(
+                        0, 4, n).astype(np.int8), core[p:]]))
+        start = dst * slots + 500
+        T[start:start + len(core)] = core[:slots - 500]
+    A4 = Alphabet("ACGT")
+    return Sequence(A4, S), Sequence(A4, T)
+
+
+@pytest.mark.parametrize("assembler", ["dense", "sparse"])
+def test_discovery_card_matches_cpu(rng, card, monkeypatch, assembler):
+    """Word-Blot discovery on the card equals discovery on the CPU at a
+    200 kbp planted pair: the seed arrays, the grid and its 3x3 sums,
+    the candidate components, and the segments with their seed counts
+    and order exactly; p-hat and (S0, S1) within rtol 1e-5, atol 1e-6."""
+    S, T = _planted_genome_pair(rng)
+    if assembler == "sparse":
+        monkeypatch.setattr(blot.WordBlot, "MAX_GRID_CELLS", 1)
+    kw = dict(wordlen=12, g_max=0.1)
+    on_card = blot.WordBlot(S, T, device=card, **kw)
+    on_cpu = blot.WordBlot(S, T, device="cpu", **kw)
+    for got, want in zip(on_card.seed_index.seed_arrays(),
+                         on_cpu.seed_index.seed_arrays()):
+        assert np.array_equal(got, want)
+    assert len(on_card.seed_index) > 6 * 2000
+    K_min, p_min = 4000, 0.6
+    for got, want in zip(on_card._grids(K_min), on_cpu._grids(K_min)):
+        assert np.array_equal(got, want)
+    assert on_card._collect_components(K_min, p_min) == \
+        on_cpu._collect_components(K_min, p_min)
+    got = list(on_card.similar_segments(K_min=K_min, p_min=p_min))
+    want = list(on_cpu.similar_segments(K_min=K_min, p_min=p_min))
+    assert len(want) >= 6
+    assert [(s["segment"], s["num_seeds"]) for s in got] == \
+        [(s["segment"], s["num_seeds"]) for s in want]
+    np.testing.assert_allclose([(s["p"], *s["score"]) for s in got],
+                               [(s["p"], *s["score"]) for s in want],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_discover_and_extend_on_the_card(rng, card):
+    """The one-call path on the card: both kernels launched, every
+    transcript rescores to its score, and the scores equal extension of
+    the same segments by the plain twins on the CPU."""
+    S, T = _planted_genome_pair(rng, size=60_000, blocks=3, block=5000)
+    kw = dict(wordlen=12, g_max=0.1, K_min=1500, p_min=0.6)
+    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    got = discover_and_extend(S, T, with_transcripts=True, device=card, **kw)
+    assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES > n_walk
+    assert len(got) >= 3 and got == sorted(got, key=lambda s: -s["score"])
+    for seg in got:
+        aln = pw.Alignment(S, T, seg["transcript"],
+                           origin_start=seg["origin_start"],
+                           mutate_start=seg["mutate_start"])
+        assert aln.calculate_score(UNIT, -3.0, -1.0) == seg["score"]
+    segments = list(blot.WordBlot(S, T, wordlen=12, g_max=0.1, device="cpu")
+                    .similar_segments(K_min=1500, p_min=0.6))
+    want = extend_segments(S, T, segments, device="cpu")
+    assert sorted(s["score"] for s in got) == sorted(s["score"] for s in want)

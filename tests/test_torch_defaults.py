@@ -19,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import native, pipeline, pw
+from biseqt_tpu_torch import blot, native, pipeline, pw, seeds
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
-from biseqt_tpu_torch.ops import banded_dp, dp_ad, dp_row, walk
+from biseqt_tpu_torch.ops import (banded_dp, blot_stats, dp_ad, dp_row,
+                                  tables, walk)
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,8 +69,64 @@ def _full_traceback(**kw):
                                        end_j=[40, 40], **_dp_kw(), **kw)
 
 
+def _pair_seqs():
+    A4 = Alphabet("ACGT")
+    rng = np.random.default_rng(6)
+    S = Sequence(A4, rng.integers(0, 4, 300))
+    return S, S[40:260]
+
+
+def _discover(**kw):
+    return pipeline.discover_and_extend(*_pair_seqs(), K_min=50, p_min=0.5,
+                                        **kw)
+
+
+_CODES = np.random.default_rng(7).integers(0, 4, (2, 30)).astype(np.int8)
+_LENS = np.asarray([30, 25], np.int32)
+_TABLE_CALLS = {
+    "kmer_keys": lambda **kw: tables.kmer_keys(_CODES, _LENS, 4, **kw),
+    "build_kmer_table": lambda **kw: tables.build_kmer_table(
+        _CODES, _LENS, 4, **kw),
+    "nway_shared_seeds": lambda **kw: tables.nway_shared_seeds(
+        _CODES, _LENS, 4, **kw),
+    "hit_ranges": lambda **kw: tables.hit_ranges(
+        np.arange(5, dtype=np.int32), np.arange(3, dtype=np.int32), **kw),
+    "expand_join": lambda **kw: tables.expand_join(
+        np.zeros(3, np.int32), np.ones(3, np.int32), **kw),
+    "seed_total": lambda **kw: tables.seed_total(
+        _CODES[0], 30, _CODES[1], 25, 4, **kw),
+    "seed_join": lambda **kw: tables.seed_join(
+        _CODES[0], 30, _CODES[1], 25, 4, **kw),
+    "seed_join_sorted": lambda **kw: tables.seed_join_sorted(
+        _CODES[0], 30, _CODES[1], 25, 4, **kw),
+    "run_boundaries": lambda **kw: tables.run_boundaries(
+        np.arange(4, dtype=np.int32), **kw),
+}
+_STATS_CALLS = {
+    "grid_counts": lambda **kw: blot_stats.grid_counts(
+        np.zeros(3, np.int32), np.ones(3, np.int32), np.ones(3, bool), 2, 2,
+        **kw),
+    "box_sum3": lambda **kw: blot_stats.box_sum3(
+        np.ones((3, 3), np.int32), **kw),
+    "sliding_band_sums": lambda **kw: blot_stats.sliding_band_sums(
+        np.ones(9, np.int32), 2, **kw),
+    "h0_h1_scores": lambda **kw: blot_stats.h0_h1_scores(
+        5.0, 100.0, 10.0, 0.8, 8, **kw),
+    "estimate_match_probability": lambda **kw:
+        blot_stats.estimate_match_probability(5.0, 10.0, 8, **kw),
+}
+
+
 ENTRY_POINTS = {
     "extend_segments": (pipeline.extend_segments, _extend),
+    "discover_and_extend": (pipeline.discover_and_extend, _discover),
+    "WordBlot": (blot.WordBlot, lambda **kw: list(blot.WordBlot(
+        *_pair_seqs(), **kw).similar_segments(K_min=50, p_min=0.5))),
+    "WordBlotOverlap": (
+        blot.WordBlotOverlap, lambda **kw: blot.WordBlotOverlap(
+            *_pair_seqs(), **kw).highest_scoring_overlap_band()),
+    "SeedIndex": (seeds.SeedIndex, lambda **kw: seeds.SeedIndex(
+        *_pair_seqs(), 8, **kw)),
     "Aligner": (pw.Aligner, _aligner),
     "banded_dp_ad": (dp_ad.banded_dp_ad, lambda **kw: dp_ad.banded_dp_ad(
         *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
@@ -108,6 +165,10 @@ ENTRY_POINTS = {
         lambda **kw: i16_probe.i16_op_reference(
             "add", np.zeros((2, 128), np.int16), **kw)),
 }
+ENTRY_POINTS.update({name: (getattr(tables, name), call)
+                     for name, call in _TABLE_CALLS.items()})
+ENTRY_POINTS.update({name: (getattr(blot_stats, name), call)
+                     for name, call in _STATS_CALLS.items()})
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -169,4 +230,4 @@ def test_port_names_no_path_of_the_jax_package():
             found += ["%s:%d %r" % (os.path.relpath(path, REPO), node.lineno,
                                     n) for n in names if _names_jax_package(n)]
     assert not found, found
-    assert sum(1 for _ in _port_modules()) >= 14
+    assert sum(1 for _ in _port_modules()) >= 19

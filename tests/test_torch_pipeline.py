@@ -1,5 +1,6 @@
-"""The port's extend_segments (biseqt_tpu_torch.pipeline) against the JAX
-package's, on the same sequences and the same Word-Blot segments.
+"""The port's extend_segments and discover_and_extend
+(biseqt_tpu_torch.pipeline) against the JAX package's, on the same
+sequences and the same Word-Blot segments.
 
 Reruns the geometry of tests/test_pipeline.py: the fused DP + device
 walk route in interpret mode (both the sublane and the lane-packed
@@ -16,6 +17,7 @@ from biseqt_tpu.blot import WordBlot
 from biseqt_tpu.pw import Alignment
 from biseqt_tpu.sequence import Alphabet, Sequence
 from biseqt_tpu.stochastics import MutationProcess, rand_seq
+from biseqt_tpu_torch import blot as port_blot
 from biseqt_tpu_torch import native, pipeline
 from biseqt_tpu_torch.sequence import from_reference
 from test_torch_cuda import UNIT
@@ -208,3 +210,83 @@ def test_extend_segments_band_above_2048_matches():
     assert got == want
     assert got[0]["score"] == 13.0 and got[0]["transcript"]
     _rescores(S, T, got)
+
+
+def _discovery_pair(seed, n_cores=2, core=250):
+    """Planted homologous cores between random spacers (the reference's
+    mutation process), for discovery and extension in one call."""
+    rng = np.random.default_rng(seed)
+    M = MutationProcess(A4, subst_probs=0.08, go_prob=0.03, ge_prob=0.1,
+                        rng=rng)
+    S, T = rand_seq(A4, 150, rng=rng), rand_seq(A4, 90, rng=rng)
+    for k in range(n_cores):
+        c = rand_seq(A4, core, rng=rng)
+        S = S + c + rand_seq(A4, 200 + 50 * k, rng=rng)
+        T = T + M.mutate(c)[0] + rand_seq(A4, 260 - 40 * k, rng=rng)
+    return S, T
+
+
+@pytest.mark.parametrize("seed,kw", [
+    (21, dict(wordlen=8, K_min=100, p_min=0.6, g_max=0.2)),
+    (22, dict(wordlen=7, K_min=120, p_min=0.5, g_max=0.15)),
+])
+def test_discover_and_extend_matches_composed_reference(seed, kw):
+    """The port's one call against the JAX package's steps composed:
+    WordBlot discovery, extension by the Pallas kernels in interpret
+    mode, sorted by score.  Segments, scores, transcripts and start
+    cells equal."""
+    S, T = _discovery_pair(seed)
+    ekw = dict(subst=UNIT, go_score=-3.0, ge_score=-1.0)
+    segments = list(WordBlot(S, T, wordlen=kw["wordlen"], g_max=kw["g_max"])
+                    .similar_segments(K_min=kw["K_min"], p_min=kw["p_min"]))
+    assert len(segments) >= 2
+    want = sorted(ref_pipeline.extend_segments(
+        S, T, segments, use_pallas=True, _interpret=True, _r_chunk=16,
+        with_transcripts=True, **ekw), key=lambda s: -s["score"])
+    got = pipeline.discover_and_extend(
+        from_reference(S), from_reference(T), with_transcripts=True,
+        device="cpu", **kw, **ekw)
+    key = lambda out: [(s["segment"], s["num_seeds"], s["score"],
+                        s["transcript"], s["origin_start"],
+                        s["mutate_start"], s["source_index"]) for s in out]
+    assert key(got) == key(want)
+    np.testing.assert_allclose([s["p"] for s in got], [s["p"] for s in want],
+                               rtol=1e-5, atol=1e-6)
+    _rescores(S, T, got)
+    # score-only: the same scores, no transcripts
+    plain = pipeline.discover_and_extend(from_reference(S),
+                                         from_reference(T), device="cpu",
+                                         **kw, **ekw)
+    assert [s["score"] for s in plain] == [s["score"] for s in got]
+    assert all("transcript" not in s for s in plain)
+
+
+def test_discovered_segment_split_into_windows():
+    """A segment the port discovers, extended under a small direction-plane
+    budget, splits into overlapping a-windows: the rows joined on
+    ``source_index`` cover the segment, equal the JAX package's windows,
+    and every window's transcript rescores to its score."""
+    S, T = _discovery_pair(23, n_cores=1, core=1200)
+    wb = port_blot.WordBlot(from_reference(S), from_reference(T), wordlen=8,
+                            g_max=0.15, device="cpu")
+    segments = list(wb.similar_segments(K_min=300, p_min=0.6))
+    assert len(segments) == 1
+    # windows of at most 2 * budget / W = 2048 antidiagonals (W 128)
+    kw = dict(subst=UNIT, go_score=-3.0, ge_score=-1.0, pad_a=128,
+              with_transcripts=True, _dirs_budget=1 << 17)
+    got = pipeline.extend_segments(from_reference(S), from_reference(T),
+                                   segments, device="cpu", **kw)
+    want = ref_pipeline.extend_segments(S, T, segments, use_pallas=False,
+                                        **kw)
+    assert len(got) > len(segments)
+    strip = lambda out: [(s["segment"], s["source_index"], s["score"],
+                          s["transcript"], s["origin_start"],
+                          s["mutate_start"]) for s in out]
+    assert strip(got) == strip(want)
+    (d_lo, d_hi), (a_lo, a_hi) = segments[0]["segment"]
+    windows = sorted(s["segment"][1] for s in got if s["source_index"] == 0)
+    assert windows[0][0] == a_lo and windows[-1][1] == a_hi
+    assert all(w0[1] >= w1[0] for w0, w1 in zip(windows, windows[1:]))
+    assert all(s["segment"][0] == (d_lo, d_hi) for s in got)
+    _rescores(S, T, got)
+    assert max(s["score"] for s in got) > 100
