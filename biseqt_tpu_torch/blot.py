@@ -163,9 +163,8 @@ class WordBlot:
         # every seed's cell and its 3x3 neighbours lie inside this grid
         n_d = (len(self.S) + len(self.T)) // dcell + 2
         n_a = (len(self.S) + len(self.T)) // acell + 2
-        grid = blot_stats.grid_counts(
-            d_ // dcell, a // acell, np.ones(len(d_), bool), n_d, n_a,
-            device=self.device)
+        grid = blot_stats.grid_counts(d_ // dcell, a // acell, n_d, n_a,
+                                      device=self.device)
         neigh = blot_stats.box_sum3(grid, device=self.device)
         return (grid.cpu().numpy(), neigh.cpu().numpy(), dcell, acell, r)
 

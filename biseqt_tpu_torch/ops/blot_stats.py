@@ -30,21 +30,20 @@ __all__ = [
 ]
 
 
-def grid_counts(d_cells, a_cells, valid, n_dcells: int, n_acells: int, *,
+def grid_counts(d_cells, a_cells, n_dcells: int, n_acells: int, *,
                 device="cuda"):
     """Histogram seeds into a (d-cell, a-cell) grid by an integer
     scatter-add.
 
-    ``d_cells``/``a_cells``: int32 [N] quantized coordinates (clipped to
-    the grid); ``valid`` masks padded slots.  Returns int32
-    [n_dcells, n_acells].
+    ``d_cells``/``a_cells``: int32 [N] quantized coordinates, one per
+    seed (clipped to the grid).  Returns int32 [n_dcells, n_acells].
     """
     device = resolve_device(device)
     d = torch.clamp(on_device(d_cells, torch.int64, device), 0, n_dcells - 1)
     a = torch.clamp(on_device(a_cells, torch.int64, device), 0, n_acells - 1)
-    ones = on_device(valid, torch.int32, device)
     g = torch.zeros(n_dcells * n_acells, dtype=torch.int32, device=device)
-    g.index_add_(0, d * n_acells + a, ones)
+    g.index_add_(0, d * n_acells + a,
+                 torch.ones(d.shape, dtype=torch.int32, device=device))
     return g.reshape(n_dcells, n_acells)
 
 
@@ -121,16 +120,16 @@ def h0_h1_scores(num_seeds, area, seglen, p_match, wordlen: int,
     # |Σ|^-w rounded once to float32 (exact for powers of two)
     p0 = torch.tensor(float(alphabet_len) ** -wordlen, dtype=torch.float32,
                       device=device)
-    mu0, sd0 = binomial_to_normal(_f32(area, device), p0)
+    mu0, sd0 = binomial_to_normal(_f32(area, device), p0, device=device)
     # floor sd0 like sd1: in the sparse (Poisson) regime the raw normal
     # tail overstates significance 4-13x
     sd0 = torch.clamp(sd0, min=1.0)
-    s0 = normal_neg_log_pvalue(mu0, sd0, num_seeds)
+    s0 = normal_neg_log_pvalue(mu0, sd0, num_seeds, device=device)
 
     pw_ = _integer_pow(_f32(p_match, device), int(wordlen))
-    mu1, sd1 = binomial_to_normal(_f32(seglen, device), pw_)
+    mu1, sd1 = binomial_to_normal(_f32(seglen, device), pw_, device=device)
     sd1 = torch.clamp(sd1, min=1.0)
-    s1 = normal_neg_log_pvalue(mu1, sd1, num_seeds)
+    s1 = normal_neg_log_pvalue(mu1, sd1, num_seeds, device=device)
     return s0, s1
 
 

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .banded_dp import NEG, DPResult, ModeFlags, on_device, resolve_device
+from .steps import put, run_steps, take
 
 __all__ = ["banded_dp_ad", "banded_dp_ad_reference", "parity_adjusted_dmin",
            "live_nibbles", "LAUNCHES"]
@@ -202,7 +203,8 @@ def _ga(a: int, g) -> np.float32:
 
 def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
     """The plain PyTorch engine: one vectorised [B2, W] update per
-    antidiagonal, in the reference's order of float operations.
+    antidiagonal, in the reference's order of float operations (on a
+    card replayed from CUDA graphs, :func:`.steps.run_steps`).
     Returns un-drifted per-lane maxima ``(Ma, Mb)`` of even / odd
     steps, their step-of-max ``(Aa, Ab)`` and the dirs plane."""
     dev = g["s_codes"].device
@@ -242,10 +244,10 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
     pad_sub = f32(g["pad_sub"])
     go, two_gd = f32(g["go"]), f32(g["two_gd"])
 
-    def sub_at(a):
+    def sub_at(a, at):
         sd = slot[a % 2]
-        i = (a + sd["dq"] + k) // 2
-        j = (a - sd["dq"] - k) // 2
+        i = (at + sd["dq"] + k) // 2
+        j = (at - sd["dq"] - k) // 2
         si, tj = i - 1, j - 1
         s_ok = (si >= 0) & (si < sd["sl"])
         t_ok = (tj >= 0) & (tj < sd["tl"])
@@ -264,21 +266,22 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
     else:
         H2 = neg.clone()
     H1, E, F = neg.clone(), neg.clone(), neg.clone()
-    M = [neg.clone(), neg.clone()]
-    Ast = [torch.full(shape, -1, dtype=torch.int32, device=dev)
-           for _ in (0, 1)]
     dirs = (torch.empty((Apad // 2, B2, W), dtype=torch.uint8, device=dev)
             if with_dirs else None)
-    nib = None
     track_local = flags.local_end
     track_rays = flags.free_end_edges
     # the drifted zero of every step, made on the host once: a scalar
     # copied to the card per step would wait for the queue each time
     ga_all = torch.tensor(np.array([_ga(a, g) for a in range(Apad)],
                                    np.float32), device=dev)
-    for a in range(Apad):
-        sub = sub_at(a)
-        ga = ga_all[a]
+
+    def step(a, at, state):
+        """Antidiagonal ``a`` (its parities from the int ``a``, the rest
+        from ``at``)."""
+        H2, H1, E, F, M0, M1, A0, A1, nib = state
+        M, Ast = [M0, M1], [A0, A1]
+        sub = sub_at(a, at)
+        ga = take(ga_all, at)
         HpGo = H1 + go
         if with_dirs:
             e4 = torch.roll(torch.where(E >= HpGo, 4, 0), -1, 1)
@@ -290,8 +293,8 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
         if flags.local_start:
             H_new = torch.maximum(H_new, ga)
         if flags.free_start_edges:
-            ray = ((k == (-dq0 - a)) | (k == (a - dq0))
-                   | (k == (-dq1 - a)) | (k == (a - dq1)))
+            ray = ((k == (-dq0 - at)) | (k == (at - dq0))
+                   | (k == (-dq1 - at)) | (k == (at - dq1)))
             H_new = torch.maximum(H_new, torch.where(ray, ga, NEGT))
         if with_dirs:
             d = torch.where(H_new == diag_cand, 1,
@@ -302,31 +305,39 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
             if a % 2 == 0:
                 nib = byte
             else:
-                dirs[a // 2] = (nib + 16 * byte).to(torch.uint8)
+                put(dirs, at // 2, (nib + 16 * byte).to(torch.uint8))
         H_new = H_new + lane_okf[a % 2]
         if track_local:
             tracked = H_new
         elif track_rays:
-            cond = (((k == (2 * sl0 - dq0 - a)) & (a >= sl0) & (a <= sltl0))
-                    | ((k == (a - dq0 - 2 * tl0)) & (a >= tl0)
-                       & (a <= sltl0))
-                    | ((k == (2 * sl1 - dq1 - a)) & (a >= sl1)
-                       & (a <= sltl1))
-                    | ((k == (a - dq1 - 2 * tl1)) & (a >= tl1)
-                       & (a <= sltl1)))
+            cond = (((k == (2 * sl0 - dq0 - at)) & (at >= sl0)
+                     & (at <= sltl0))
+                    | ((k == (at - dq0 - 2 * tl0)) & (at >= tl0)
+                       & (at <= sltl0))
+                    | ((k == (2 * sl1 - dq1 - at)) & (at >= sl1)
+                       & (at <= sltl1))
+                    | ((k == (at - dq1 - 2 * tl1)) & (at >= tl1)
+                       & (at <= sltl1)))
             tracked = torch.where(cond, H_new, NEGT)
         else:
-            cond = (((a == sltl0) & (k == kc0))
-                    | ((a == sltl1) & (k == kc1)))
+            cond = (((at == sltl0) & (k == kc0))
+                    | ((at == sltl1) & (k == kc1)))
             tracked = torch.where(cond, H_new, NEGT)
         # trackers drift +2 gd per own update so maxima across steps
         # compare drift-consistently
         Ms = M[a % 2] + two_gd
         if with_dirs:
-            Ast[a % 2] = torch.where(tracked > Ms, a, Ast[a % 2]).to(
+            Ast[a % 2] = torch.where(tracked > Ms, at, Ast[a % 2]).to(
                 torch.int32)
         M[a % 2] = torch.maximum(Ms, tracked)
-        H2, H1 = H1, H_new
+        return (H1, H_new, E, F, M[0], M[1], Ast[0], Ast[1], nib)
+
+    Ast0 = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    state = (H2, H1, E, F, neg.clone(), neg.clone(), Ast0, Ast0.clone(),
+             torch.zeros(shape, dtype=torch.int64, device=dev))
+    _, _, _, _, M0, M1, A0, A1, _ = run_steps(step, state, range(Apad))
+    M = [M0, M1]
+    Ast = [A0, A1]
     Ma = M[0] - f32(g["undrift_a"])
     Mb = M[1] - f32(g["undrift_b"])
     return Ma, Mb, Ast[0], Ast[1], dirs

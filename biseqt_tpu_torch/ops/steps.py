@@ -1,0 +1,91 @@
+"""A Python loop of small device steps, replayed from CUDA graphs.
+
+The plain twins of the antidiagonal kernels (:mod:`.dp_ad`,
+:mod:`.walk`) loop over antidiagonals in Python, a few dozen PyTorch
+operations on small tensors a step.  On a CUDA device the host's
+dispatch of each operation, not the card, sets the time of such a
+step, and a genome-length chain of ~10^6 steps would take many minutes.
+:func:`run_steps` runs the first chunk of steps as written, captures the
+next chunk once into a CUDA graph, with the step index held in a device
+counter, and replays the graph for every later whole chunk: the same
+operations on the same tensors, in the same order, launched by the card
+from the graph instead of one by one from Python.  On the CPU it is the
+plain loop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["run_steps", "take", "put", "add_at", "GRAPH_CHUNK"]
+
+# steps captured into one CUDA graph (a multiple of 4: a step may read
+# its index's residue mod 4 as a Python int)
+GRAPH_CHUNK = 128
+
+
+def take(x: torch.Tensor, i):
+    """``x[i]`` for an int or a one-element index tensor."""
+    return x[i] if isinstance(i, int) else x.index_select(0, i)[0]
+
+
+def put(x: torch.Tensor, i, value: torch.Tensor):
+    """``x[i] = value`` for an int or a one-element index tensor."""
+    if isinstance(i, int):
+        x[i] = value
+    else:
+        x.index_copy_(0, i, value[None].to(x.dtype))
+
+
+def add_at(x: torch.Tensor, i, value: torch.Tensor):
+    """``x[i] += value`` for an int or a one-element index tensor."""
+    if isinstance(i, int):
+        x[i] += value
+    else:
+        x.index_add_(0, i, value[None].to(x.dtype))
+
+
+def run_steps(step, state, steps: range):
+    """``state = step(a, a_now, state)`` for every ``a`` of ``steps``, in
+    order; returns the last state.
+
+    ``state`` is a tuple of tensors on one device, and ``step`` returns
+    a tuple of the same shapes and types.  ``step`` may use the Python
+    int ``a`` only through ``a % 4`` (its parities); everything else it
+    computes from ``a`` it computes from ``a_now``, which is ``a`` itself
+    or, inside a CUDA graph, a one-element int64 tensor holding ``a``
+    (index with :func:`take`, :func:`put` and :func:`add_at`).  It may
+    write tensors it closes over, and must not copy from the host.
+    """
+    state = tuple(state)
+    chunk = GRAPH_CHUNK
+    if state[0].device.type != "cuda" or len(steps) < 2 * chunk:
+        for a in steps:
+            state = step(a, a, state)
+        return state
+    # the first chunk as written: it also makes every operation's first
+    # use, which a graph capture must not be
+    for a in steps[:chunk]:
+        state = step(a, a, state)
+    rest = steps[chunk:]
+    n_graphed = len(rest) // chunk * chunk
+    static = tuple(x.clone() for x in state)
+    counter = torch.tensor([rest[0]], dtype=torch.int64,
+                           device=state[0].device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        st = static
+        for c in range(chunk):
+            st = step(rest[c], counter + c * steps.step, st)
+        for x, y in zip(static, st):
+            x.copy_(y)
+        counter.add_(chunk * steps.step)
+    for _ in range(n_graphed // chunk):
+        graph.replay()
+    # the graph's memory goes back to the allocator with it
+    torch.cuda.current_stream().synchronize()
+    del graph
+    state = static
+    for a in rest[n_graphed:]:
+        state = step(a, a, state)
+    return state

@@ -15,11 +15,12 @@ discovery (it replaces the reference's SQLite-backed ``KmerIndex`` and
 Plain PyTorch on the device (``device="cuda"`` by default; numpy inputs
 are copied there, tensors must already live there): the JAX package
 does this work in XLA outside any Pallas kernel.  The JAX package's
-static capacities (compile-cache buckets for the TPU) are optional
-here: without one, a join emits exactly its seeds.
+static capacities (compile-cache buckets for the TPU) are not carried
+over: a join emits exactly its seeds.
 
-Invalid or padded slots use ``KEY_SENTINEL`` (int32 max), so they sort
-to the end and fall out of every searchsorted range.
+Windows that overrun their row or hold a PAD letter get
+``KEY_SENTINEL`` (int32 max), so they sort to the end and fall out of
+every searchsorted range.
 """
 
 from __future__ import annotations
@@ -121,46 +122,39 @@ def hit_ranges(table_keys, query_keys, *, device="cuda"):
                    on_device(query_keys, torch.int32, device).contiguous())
 
 
-def _expand(starts, counts, capacity):
+def _expand(starts, counts):
     counts = counts.to(torch.int64)
-    n = counts.shape[0]
     ends = torch.cumsum(counts, 0)
-    total = int(ends[-1]) if n else 0
+    total = int(ends[-1]) if counts.shape[0] else 0
     if total > MAX_SEEDS:
         raise OverflowError(
             "a join of %d pairs exceeds 2^31 - 1 (the JAX package's int32"
             " count wraps there)" % total)
-    capacity = total if capacity is None else int(capacity)
-    slot = torch.arange(capacity, dtype=torch.int64, device=counts.device)
-    if n == 0:
-        zero = torch.zeros(capacity, dtype=torch.int32, device=counts.device)
-        return zero, zero, slot < 0, total
+    slot = torch.arange(total, dtype=torch.int64, device=counts.device)
     q = torch.searchsorted(ends, slot, side="right")
-    q = torch.clamp(q, max=n - 1)
     rank = slot - (ends - counts)[q]
     t = starts.to(torch.int64)[q] + rank
-    return q.to(torch.int32), t.to(torch.int32), slot < total, total
+    return q.to(torch.int32), t.to(torch.int32)
 
 
-def expand_join(starts, counts, capacity: int = None, *, device="cuda"):
+def expand_join(starts, counts, *, device="cuda"):
     """Invert a ragged expansion into gathers.
 
     Given per-query hit-run starts and counts, give each output slot
-    ``n < capacity`` the (query_index, table_index) pair it stands for,
-    in query-major order: ``query_of[n] = searchsorted(cumsum(counts), n,
-    'right')`` and ``table_of[n] = starts[q] + (n - offset[q])``.  Slots
-    past ``total = sum(counts)`` are masked.  ``capacity=None`` (the
-    default) is the total itself.
+    ``n < sum(counts)`` the (query_index, table_index) pair it stands
+    for, in query-major order: ``query_of[n] = searchsorted(cumsum(
+    counts), n, 'right')`` and ``table_of[n] = starts[q] + (n -
+    offset[q])``.
 
-    Returns ``(query_idx, table_idx, valid, total)``: int32 and bool
-    arrays of length ``capacity`` and the total as an int.
+    Returns ``(query_idx, table_idx)``, int32 arrays of length
+    ``sum(counts)``.
 
     Overflow contract: past 2^31 - 1 pairs (where the JAX package's int32
     total wraps negative) it raises ``OverflowError``.
     """
     device = resolve_device(device)
     return _expand(on_device(starts, torch.int32, device),
-                   on_device(counts, torch.int64, device), capacity)
+                   on_device(counts, torch.int64, device))
 
 
 def _pair_keys(codes0, len0, codes1, len1, wordlen, alphabet_len, device):
@@ -185,8 +179,7 @@ def seed_total(codes0, len0, codes1, len1, wordlen: int,
     return int(counts.to(torch.int64).sum())
 
 
-def _join(codes0, len0, codes1, len1, wordlen, alphabet_len, capacity,
-          device):
+def _join(codes0, len0, codes1, len1, wordlen, alphabet_len, device):
     k0, k1 = _pair_keys(codes0, len0, codes1, len1, wordlen, alphabet_len,
                         device)
     L1 = k1.shape[0]
@@ -194,15 +187,12 @@ def _join(codes0, len0, codes1, len1, wordlen, alphabet_len, capacity,
     sk1, sp1 = torch.sort(k1, stable=True)
     starts, ends = _ranges(sk1, k0)
     counts = torch.where(k0 != int(KEY_SENTINEL), ends - starts, 0)
-    qi, ti, valid, total = _expand(starts, counts, capacity)
-    j = sp1[torch.clamp(ti, 0, L1 - 1).to(torch.int64)].to(torch.int32)
-    return {"i": torch.where(valid, qi, 0), "j": torch.where(valid, j, 0),
-            "valid": valid, "total": total}
+    qi, ti = _expand(starts, counts)
+    return {"i": qi, "j": sp1[ti.to(torch.int64)].to(torch.int32)}
 
 
 def seed_join(codes0, len0, codes1, len1, wordlen: int,
-              alphabet_len: int = 4, capacity: int = None, *,
-              device="cuda"):
+              alphabet_len: int = 4, *, device="cuda"):
     """Enumerate exact k-mer matches (seeds) between two sequences: T's
     k-mers are sorted once, every S window's run in them is found by
     binary search, and the runs are expanded into pairs with
@@ -211,41 +201,35 @@ def seed_join(codes0, len0, codes1, len1, wordlen: int,
     Args:
         codes0/1: int8 ``[L]`` code rows (PAD tail ok).
         len0/1: the rows' lengths.
-        capacity: the number of output slots (``None``: exactly the
-            seeds).
 
-    Returns a dict: int32 ``i`` (position in S) and ``j`` (position in
-    T), the ``valid`` mask, and ``total``, the true seed count (it may
-    exceed ``capacity``).  Seeds come in ascending ``i``; the order of
+    Returns a dict of int32 arrays, one slot per seed: ``i`` (position
+    in S) and ``j`` (position in T).  Seeds come in ascending ``i``; the
+    order of
     one ``i``'s seeds is unspecified (the JAX package sorts T's keys
     with an unstable sort).
     """
     return _join(codes0, len0, codes1, len1, wordlen, alphabet_len,
-                 capacity, resolve_device(device))
+                 resolve_device(device))
 
 
 def seed_join_sorted(codes0, len0, codes1, len1, wordlen: int,
-                     alphabet_len: int = 4, capacity: int = None, *,
-                     device="cuda"):
+                     alphabet_len: int = 4, *, device="cuda"):
     """:func:`seed_join`, the band-coordinate transform and the (d_, a)
     sort, all on the device: the SeedIndex build path.
 
-    Returns a dict: int32 ``d_`` (= i - j + len1, ascending, sentinel
-    tail = KEY_SENTINEL), ``a`` (= i + j, the secondary key) and
-    ``total``.  (d_, a) fixes (i, j), so the order is total.
+    Returns a dict of int32 arrays, one slot per seed: ``d_`` (= i - j
+    + len1, ascending) and ``a`` (= i + j, the secondary key).  (d_, a)
+    fixes (i, j), so the order is total.
     """
     device = resolve_device(device)
-    out = _join(codes0, len0, codes1, len1, wordlen, alphabet_len, capacity,
-                device)
-    valid = out["valid"]
-    d_ = torch.where(valid, out["i"] - out["j"] + int(len1),
-                     int(KEY_SENTINEL)).to(torch.int64)
-    a = torch.where(valid, out["i"] + out["j"], 0).to(torch.int64)
+    out = _join(codes0, len0, codes1, len1, wordlen, alphabet_len, device)
+    d_ = (out["i"] - out["j"] + int(len1)).to(torch.int64)
+    a = (out["i"] + out["j"]).to(torch.int64)
     # one sort of the composite key d_ * stride + a, a < stride
     stride = int(np.shape(codes0)[-1]) + int(np.shape(codes1)[-1])
     comp = torch.sort(d_ * stride + a).values
     return {"d_": (comp // stride).to(torch.int32),
-            "a": (comp % stride).to(torch.int32), "total": out["total"]}
+            "a": (comp % stride).to(torch.int32)}
 
 
 def nway_shared_seeds(codes, lengths, wordlen: int, alphabet_len: int = 4,

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from .banded_dp import on_device, resolve_device
+from .steps import add_at, run_steps, take
 
 __all__ = ["traceback_walk", "traceback_walk_reference", "trace_moves",
            "step_walk", "LAUNCHES", "DEPTH", "OP_NONE", "OP_DIAG", "OP_INS",
@@ -120,14 +121,22 @@ def _walk_plain(dirs, dq, ei, ej, Rp, B2, W):
     ST = torch.zeros_like(I)
     TRb = (Rp + 1) // 2
     acc = torch.zeros((TRb, Bp), dtype=torch.int32, device=dev)
-    for a in range(2 * Rp - 1, -1, -1):
-        act = A == a
-        on = act & (X >= 0) & (X < W) & (((a + X) % 2) == par)
-        row = dirs[a // 2][col, X.clamp(0, W - 1).to(torch.int64)]
+
+    def step(a, at, state):
+        """Antidiagonal ``a`` (its parities from the int ``a``, the rest
+        from ``at``)."""
+        A, X, I, J, ST = state
+        act = A == at
+        on = act & (X >= 0) & (X < W) & (((at + X) % 2) == par)
+        row = take(dirs, at // 2)[col, X.clamp(0, W - 1).to(torch.int64)]
         nib = (row.to(torch.int32) >> (4 * (a % 2))) & 15
         byte = torch.where(on, nib, 0)
         OP, A, X, I, J, ST = step_walk(byte, act, A, X, I, J, ST)
-        acc[a // 4] += OP << (2 * (a % 4))
+        add_at(acc, at // 4, OP << (2 * (a % 4)))
+        return A, X, I, J, ST
+
+    _, _, I, J, _ = run_steps(step, (A, X, I, J, ST),
+                              range(2 * Rp - 1, -1, -1))
     trace = acc.to(torch.uint8).reshape(TRb, B2, 2).permute(2, 0, 1)
     return trace.contiguous(), I, J
 

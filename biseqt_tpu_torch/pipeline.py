@@ -33,7 +33,8 @@ from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
 
 __all__ = ["extend_segments", "discover_and_extend", "cut_segment",
-           "plan_launches", "launch_inputs", "PAD_RADIUS", "PAD_A"]
+           "extension_plan", "plan_launches", "launch_inputs", "PAD_RADIUS",
+           "PAD_A", "DIRS_BUDGET"]
 
 # default growth of a segment's rectangle: discovery quantizes to coarse
 # cells, and the alignment must be free to extend past the seed core
@@ -50,6 +51,9 @@ PAD_A = 512       # antidiagonals on each end
 # 42.8 ms), so memory alone caps a launch.  A tenth of the card leaves
 # room for the walk's trace and the next launch's inputs.
 LAUNCH_BYTES = 8 << 30
+# Bytes of direction plane one transcript row may fill: a longer
+# segment is split into overlapping a-windows (the JAX package's budget)
+DIRS_BUDGET = 512 << 20
 
 
 def _bucket(n, mini=128):
@@ -89,6 +93,22 @@ def _split_windows(segments, pad_radius, pad_a, dirs_budget):
             split.append(sub)
             src_idx.append(k)
     return split, src_idx
+
+
+def extension_plan(segments, len_s, len_t, with_transcripts: bool, *,
+                   pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
+                   dirs_budget: int = DIRS_BUDGET):
+    """What :func:`extend_segments` launches for ``segments``: ``(rows,
+    src_idx, cut, launches)``, the rows after the window split
+    (transcripts only), the segment each came from, each row's cut
+    (:func:`cut_segment`) and the launches (:func:`plan_launches`)."""
+    if with_transcripts:
+        rows, src_idx = _split_windows(segments, pad_radius, pad_a,
+                                       int(dirs_budget))
+    else:
+        rows, src_idx = list(segments), list(range(len(segments)))
+    cut = [cut_segment(row, len_s, len_t, pad_radius, pad_a) for row in rows]
+    return rows, src_idx, cut, plan_launches(cut, with_transcripts)
 
 
 def cut_segment(seg, len_s, len_t, pad_radius=PAD_RADIUS, pad_a=PAD_A):
@@ -180,7 +200,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                     go_score=-3.0, ge_score=-1.0,
                     pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
                     with_transcripts: bool = False, device="cuda",
-                    _dirs_budget: int = 512 << 20, _r_chunk: int = 128):
+                    _dirs_budget: int = DIRS_BUDGET, _r_chunk: int = 128):
     """Batched banded extension of candidate segments.
 
     ``S`` / ``T``: sequences (anything with ``to_array()`` and ``len``);
@@ -220,13 +240,9 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                 "(building biseqt_tpu_torch/csrc/pwnative.cpp failed — is a "
                 "C++ toolchain installed?); run score-only "
                 "(with_transcripts=False)")
-        segments, src_idx = _split_windows(segments, pad_radius, pad_a,
-                                           int(_dirs_budget))
-    else:
-        src_idx = list(range(len(segments)))
-
-    cut = [cut_segment(seg, len(S), len(T), pad_radius, pad_a)
-           for seg in segments]
+    segments, src_idx, cut, launches = extension_plan(
+        segments, len(S), len(T), with_transcripts, pad_radius=pad_radius,
+        pad_a=pad_a, dirs_budget=_dirs_budget)
     B = len(cut)
     # local mode: the alignment starts and ends wherever the homology does
     flags = ModeFlags(local_start=True, local_end=True)
@@ -239,7 +255,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
     with Phase("pipeline.extend", cells=total_cells):
-        for idxs, LS, LT, W in plan_launches(cut, with_transcripts):
+        for idxs, LS, LT, W in launches:
             n = len(idxs)
             x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
                               with_transcripts)
@@ -310,12 +326,19 @@ def discover_and_extend(S, T, *, wordlen: int = 8, K_min: int = 100,
 
     ``device="cuda"`` (the default) runs the seed join and statistics on
     the card and extends with the hand-written kernels; ``"cpu"`` runs
-    them and the kernels' plain twins on the host.  ``use_pallas``
-    chooses among the JAX package's engines, which give the same
-    results; it is kept for that signature, and ``device`` alone
-    chooses the port's.
+    them and the kernels' plain twins on the host.  ``use_pallas``, the
+    JAX package's engine choice, names the same choice here: ``True``
+    asks for the kernels (a CUDA ``device``), ``False`` for the plain
+    twins (the CPU), ``None`` leaves it to ``device``; a value that
+    contradicts ``device`` raises ``ValueError``.
     """
     device = resolve_device(device)
+    if use_pallas is not None and bool(use_pallas) != (
+            device.type == "cuda"):
+        raise ValueError(
+            "use_pallas=%r contradicts device=%s: the kernels run on a"
+            " CUDA device and their plain twins on the CPU"
+            % (use_pallas, device))
     wb = WordBlot(S, T, wordlen=wordlen, g_max=g_max, device=device)
     segments = list(wb.similar_segments(K_min=K_min, p_min=p_min))
     extended = extend_segments(

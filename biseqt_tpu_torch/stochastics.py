@@ -10,8 +10,8 @@ binomial_to_normal, normal_neg_log_pvalue``), in two parts:
   and transcripts, letter for letter;
 * the null-model math (:func:`binomial_to_normal`,
   :func:`np_log_erfc`, :func:`normal_neg_log_pvalue`) in float32
-  PyTorch, on the device of its tensor arguments (the CPU for plain
-  numbers).  Word-Blot's statistics (:mod:`.ops.blot_stats`) call it.
+  PyTorch on ``device`` (the card by default).  Word-Blot's statistics
+  (:mod:`.ops.blot_stats`) call it.
 
 The JAX package's device tier (``rand_seq_batch``, ``mutate_batch``) is
 not ported yet.
@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from .ops.banded_dp import on_device, resolve_device
 from .sequence import Alphabet, EditTranscript, Sequence
 
 __all__ = [
@@ -174,32 +175,23 @@ class MutationProcess:
 # Null-model math (normal approximations, stable log p-values), float32
 # ---------------------------------------------------------------------------
 
-def _device_of(*xs) -> torch.device:
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            return x.device
-    return torch.device("cpu")
-
-
 def _f32(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return on_device(x, torch.float32, device)
 
 
-def binomial_to_normal(n, p):
+def binomial_to_normal(n, p, *, device="cuda"):
     """Mean and standard deviation of the normal approximating
-    Binomial(n, p), in float32."""
-    device = _device_of(n, p)
+    Binomial(n, p), in float32 on ``device``."""
+    device = resolve_device(device)
     n, p = _f32(n, device), _f32(p, device)
     return n * p, torch.sqrt(n * p * (1.0 - p))
 
 
-def np_log_erfc(z):
+def np_log_erfc(z, *, device="cuda"):
     """Numerically stable ``log(erfc(z))`` for large positive z: the direct
     formula for z <= 3, beyond it the asymptotic expansion
     ``erfc(z) ~ exp(-z^2) / (z sqrt(pi)) (1 - 1/(2 z^2))``."""
-    z = _f32(z, _device_of(z))
+    z = _f32(z, resolve_device(device))
     direct = torch.log(torch.special.erfc(torch.clamp(z, max=3.0)))
     z_safe = torch.clamp(z, min=3.0)
     half_log_pi = 0.5 * torch.log(torch.tensor(math.pi, dtype=torch.float32))
@@ -208,17 +200,17 @@ def np_log_erfc(z):
     return torch.where(z <= 3.0, direct, asym)
 
 
-def normal_neg_log_pvalue(mu, sd, x):
+def normal_neg_log_pvalue(mu, sd, x, *, device="cuda"):
     """−log of the upper-tail p-value of Normal(mu, sd) at x, stably:
     ``-log P(X >= x)``; large values mean x is far in the upper tail.
     Vectorized; for sd == 0 it is +inf where x > mu and 0 elsewhere."""
-    device = _device_of(mu, sd, x)
+    device = resolve_device(device)
     mu, sd, x = _f32(mu, device), _f32(sd, device), _f32(x, device)
     z = (x - mu) / torch.where(sd > 0, sd, torch.ones_like(sd))
     z = z / torch.sqrt(torch.tensor(2.0, device=device))
     # P(X >= x) = erfc(z) / 2
     log2 = torch.log(torch.tensor(2.0, device=device))
-    out = -(np_log_erfc(z) - log2)
+    out = -(np_log_erfc(z, device=device) - log2)
     return torch.where(sd > 0, out, torch.where(
         x > mu, torch.tensor(math.inf, device=device),
         torch.tensor(0.0, device=device)))

@@ -34,7 +34,8 @@ Phases, each of which exits non-zero on failure:
    bytes, cursors) to their plain PyTorch twins on the same CUDA
    tensors, exactly, and the transcripts to the C++ host walker's over
    the same plane;
-5. times each kernel and its plain twin with CUDA events at that
+5. times each kernel with CUDA events, and its plain twin (its loop of
+   small steps replayed from CUDA graphs) on the host clock, at that
    launch's shape, and the replay guard of ``extend_segments`` (the
    trace's moves against the end cells, on the card) as called and
    replayed from a CUDA graph; times K1 on that launch's inputs tiled
@@ -79,14 +80,19 @@ Phases, each of which exits non-zero on failure:
    order exactly; p-hat, S0 and S1 within rtol 1e-5, atol 1e-6);
    rescores every transcript (exactly its score, its cells inside both
    genomes); requires block recall 1.0; prints the seconds of the seed
-   build, discovery, extension and the whole call; and times both
-   kernels at the path's largest launch beside their bounds.
+   build, discovery, extension and the whole call; on the plan's launch
+   of the fewest antidiagonals holds the DP kernel (scores, end cells,
+   the dirs plane on its live slots) and the walk kernel (trace bytes,
+   cursors) to their plain twins on the card, exactly, and times the
+   twins; and times both kernels on every launch of the plan beside
+   their bounds.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
 could take for the same work, from this run's bytes and operations;
-for the DP and walk kernels also their launches on each path and their
-times and bounds at the discovery path's launch),
+for the DP and walk kernels also their launches on each path, their
+times and bounds at the discovery path's largest launch, and the
+twins' time and error on the launch held to them),
 then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Fails (exit code not 0, no result)
 without a CUDA card or outside the repository.
@@ -393,10 +399,8 @@ def genome_phase(dev, card, subst):
             or row["num_seeds"] != segs_card[k]["num_seeds"]
             for k, rows in by_source.items() for row in rows):
         fail("discover_and_extend's rows are not WordBlot's segments")
-    rows, _ = pipeline._split_windows(segs_card, pipeline.PAD_RADIUS,
-                                      pipeline.PAD_A, 512 << 20)
-    gcut = [pipeline.cut_segment(row, len(Sg), len(Tg)) for row in rows]
-    glaunches = pipeline.plan_launches(gcut, True)
+    _, _, gcut, glaunches = pipeline.extension_plan(segs_card, len(Sg),
+                                                    len(Tg), True)
     if any(c != len(glaunches) for c in disc_counts.values()):
         fail("a kernel was not launched once per launch of the plan (%d):"
              " %s" % (len(glaunches), disc_counts))
@@ -440,11 +444,16 @@ def genome_phase(dev, card, subst):
               % (len(idxs), LS, LT, W))
 
     # K1 and the walk on every launch of the plan, timed alone; the
-    # largest launch (by band cells) stands for the path in the JSON line
+    # largest launch (by band cells) stands for the path in the JSON
+    # line.  On the launch of the fewest antidiagonals both kernels are
+    # held to their plain twins on the card, on that launch's inputs.
     cells_of = lambda idxs: sum((gcut[k][5] - gcut[k][4] + 1)
                                 * (gcut[k][1] - gcut[k][0]) for k in idxs)
+    held = min(range(len(glaunches)), key=lambda n: (
+        glaunches[n][1] + glaunches[n][2], len(glaunches[n][0])))
+    twin = None
     timed = []
-    for gidx, gLS, gLT, gW in glaunches:
+    for n_launch, (gidx, gLS, gLT, gW) in enumerate(glaunches):
         gx = pipeline.launch_inputs(gcut, gidx, gLS, gLT, gW, sg_arr,
                                     tg_arr, True)
         gon = {k: torch.from_numpy(v).to(dev) for k, v in gx.items()}
@@ -458,6 +467,9 @@ def genome_phase(dev, card, subst):
         gej = torch.where(greal, gres.end_j, -1)
         gwalk = walk.traceback_walk(gres.dirs, gon["dminq"], gei, gej, W=gW,
                                     device=dev)
+        if n_launch == held:
+            twin = hold_genome_launch(dev, card, gargs, gkw, gon, gres, gei,
+                                      gej, gwalk, gLS, gLT, gW, len(gidx))
         dp_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*gargs, **gkw), 2)
         walk_ms = cuda_ms(lambda: walk.traceback_walk(
             gres.dirs, gon["dminq"], gei, gej, W=gW, device=dev), 2)
@@ -487,10 +499,68 @@ def genome_phase(dev, card, subst):
     return {"launches": disc_counts,
             "dp_ad": {"ms": dp_ms, "bound_ms": dp_bound[0],
                       "bound_by": dp_bound[1],
-                      "plan_ms": sum(t[1] for t in timed)},
+                      "plan_ms": sum(t[1] for t in timed),
+                      "held_launch": twin["shape"],
+                      "held_plain_ms": twin["dp_plain_ms"],
+                      "held_max_abs_err": twin["dp_err"]},
             "walk": {"ms": walk_ms, "bound_ms": walk_bound[0],
                      "bound_by": walk_bound[1],
-                     "plan_ms": sum(t[3] for t in timed)}}
+                     "plan_ms": sum(t[3] for t in timed),
+                     "held_launch": twin["shape"],
+                     "held_plain_ms": twin["walk_plain_ms"],
+                     "held_max_abs_err": twin["walk_err"]}}
+
+
+def hold_genome_launch(dev, card, gargs, gkw, gon, gres, gei, gej, gwalk,
+                       LS, LT, W, n_real):
+    """Phase 10's twin check: K1 and the walk on one launch of the genome
+    plan against their plain twins on the card, on the same tensors:
+    scores, end cells, the dirs plane on its live slots, trace bytes and
+    cursors, exactly.  Returns the twins' times and the launch's
+    shape."""
+    import torch
+
+    from biseqt_tpu_torch.ops import dp_ad, walk
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dp_ad.banded_dp_ad_reference(*gargs, **gkw)
+    torch.cuda.synchronize()
+    dp_plain_ms = (time.perf_counter() - t0) * 1e3
+    dp_err = float((gres.score - want.score).abs().max())
+    if not (torch.equal(gres.score, want.score)
+            and torch.equal(gres.end_i, want.end_i)
+            and torch.equal(gres.end_j, want.end_j)):
+        fail("genome launch: DP kernel scores / end cells differ from the"
+             " plain twin (max |d score| %r)" % dp_err)
+    low_live, high_live = dp_ad.live_nibbles(gon["dmin"], gon["w_eff"], W)
+    gd, wd = gres.dirs, want.dirs
+    bad = int((((gd ^ wd) & 15).ne(0) & low_live).sum()
+              + (((gd ^ wd) >> 4).ne(0) & high_live).sum())
+    if bad:
+        fail("genome launch: DP kernel dirs plane differs from the plain"
+             " twin on %d live nibbles" % bad)
+    del want
+    t0 = time.perf_counter()
+    w_want = walk.traceback_walk_reference(gres.dirs, gon["dminq"], gei, gej,
+                                           W=W, device=dev)
+    torch.cuda.synchronize()
+    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(gwalk, w_want)):
+        fail("genome launch: walk kernel trace / cursors differ from the"
+             " plain twin")
+    walk_err = float((gwalk[1] - w_want[1]).abs().max()
+                     + (gwalk[2] - w_want[2]).abs().max())
+    shape = "%d pairs (%d real), LS %d, LT %d, W %d" % (
+        len(gon["dmin"]), n_real, LS, LT, W)
+    print("genome launch (%s): %s: dp_ad kernel == plain twin (scores, end"
+          " cells, dirs plane on its live slots; twin %.1f s), walk kernel =="
+          " plain twin (trace bytes, cursors; twin %.1f s); %d"
+          " antidiagonals, the twins replayed from CUDA graphs"
+          % (card, shape, dp_plain_ms / 1e3, walk_plain_ms / 1e3,
+             gres.dirs.shape[0] * 2))
+    return {"shape": shape, "dp_plain_ms": dp_plain_ms, "dp_err": dp_err,
+            "walk_plain_ms": walk_plain_ms, "walk_err": walk_err}
 
 
 def main():
@@ -569,8 +639,8 @@ def main():
     e2e = time.perf_counter() - t0
     narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
     counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
-    cut = [pipeline.cut_segment(seg, len(S), len(T)) for seg in segments]
-    launches = pipeline.plan_launches(cut, True)
+    _, _, cut, launches = pipeline.extension_plan(segments, len(S), len(T),
+                                                  True)
     n_launches = len(launches) + len(pipeline.plan_launches(cut[:NARROW],
                                                              True))
     print("launches: %d planned, %s counted" % (n_launches, counts))

@@ -21,7 +21,7 @@ import torch
 from biseqt_tpu_torch import blot, pw
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
-from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
+from biseqt_tpu_torch.ops import dp_ad, dp_row, steps, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
 from biseqt_tpu_torch.pipeline import discover_and_extend, extend_segments
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
@@ -173,6 +173,37 @@ def test_dp_ad_kernel_odd_pairs_and_chunk_wrap(rng, card, flags, r_chunk):
                                                 **kw)
             _assert_results_equal(got, want)
         assert got.score.shape == (B,) and float(got.score.max()) > 100
+
+
+@pytest.mark.parametrize("flags", FLAG_CASES[:3])
+def test_plain_twins_replayed_from_graphs_match_their_loop(rng, card,
+                                                           monkeypatch,
+                                                           flags):
+    """On the card the twins replay chunks of steps from a CUDA graph
+    (steps.run_steps): the DP twin's and the walk twin's outputs equal
+    their step-by-step loop's, with a tail of steps after the last whole
+    chunk (306 steps: 128 as written, 128 replayed, 50 as written)."""
+    args, w_eff = mk_batch(rng)
+    args = [torch.as_tensor(x, device=card) for x in args]
+    kw = dict(W=128, subst=GENERAL, go=-3.0, ge=-0.5,
+              flags=ModeFlags(**flags),
+              w_eff=torch.as_tensor(w_eff, device=card), r_chunk=6,
+              with_dirs=True, device=card)
+    dminq = dp_ad.parity_adjusted_dmin(args[4], torch.arange(
+        len(args[4]), device=card, dtype=torch.int32) % 2)
+
+    def twins():
+        res = dp_ad.banded_dp_ad_reference(*args, **kw)
+        assert res.dirs.shape[0] * 2 == 306
+        return res, walk.traceback_walk_reference(
+            res.dirs, dminq, res.end_i, res.end_j, W=128, device=card)
+
+    graphed, graphed_walk = twins()
+    monkeypatch.setattr(steps, "GRAPH_CHUNK", 1 << 30)
+    looped, looped_walk = twins()
+    _assert_results_equal(graphed, looped)
+    _assert_results_equal(graphed_walk, looped_walk)
+    assert graphed_walk[0].any()
 
 
 def _walk_plane(rng, kind, B2, Rp, W):

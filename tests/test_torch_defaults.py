@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import blot, native, pipeline, pw, seeds
+from biseqt_tpu_torch import blot, native, pipeline, pw, seeds, stochastics
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.ops import (banded_dp, blot_stats, dp_ad, dp_row,
                                   tables, walk)
@@ -104,8 +104,7 @@ _TABLE_CALLS = {
 }
 _STATS_CALLS = {
     "grid_counts": lambda **kw: blot_stats.grid_counts(
-        np.zeros(3, np.int32), np.ones(3, np.int32), np.ones(3, bool), 2, 2,
-        **kw),
+        np.zeros(3, np.int32), np.ones(3, np.int32), 2, 2, **kw),
     "box_sum3": lambda **kw: blot_stats.box_sum3(
         np.ones((3, 3), np.int32), **kw),
     "sliding_band_sums": lambda **kw: blot_stats.sliding_band_sums(
@@ -165,6 +164,15 @@ ENTRY_POINTS = {
         lambda **kw: i16_probe.i16_op_reference(
             "add", np.zeros((2, 128), np.int16), **kw)),
 }
+_NULL_MODEL_CALLS = {
+    "binomial_to_normal": lambda **kw: stochastics.binomial_to_normal(
+        [100.0, 9600.0], 0.25, **kw),
+    "np_log_erfc": lambda **kw: stochastics.np_log_erfc([0.5, 4.0], **kw),
+    "normal_neg_log_pvalue": lambda **kw: stochastics.normal_neg_log_pvalue(
+        [25.0, 0.0], [4.3, 0.0], [40.0, 1.0], **kw),
+}
+ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
+                     for name, call in _NULL_MODEL_CALLS.items()})
 ENTRY_POINTS.update({name: (getattr(tables, name), call)
                      for name, call in _TABLE_CALLS.items()})
 ENTRY_POINTS.update({name: (getattr(blot_stats, name), call)

@@ -253,12 +253,22 @@ def test_discover_and_extend_matches_composed_reference(seed, kw):
     np.testing.assert_allclose([s["p"] for s in got], [s["p"] for s in want],
                                rtol=1e-5, atol=1e-6)
     _rescores(S, T, got)
-    # score-only: the same scores, no transcripts
+    # score-only: the same scores, no transcripts (use_pallas=False
+    # names the CPU's plain twins)
     plain = pipeline.discover_and_extend(from_reference(S),
                                          from_reference(T), device="cpu",
-                                         **kw, **ekw)
+                                         use_pallas=False, **kw, **ekw)
     assert [s["score"] for s in plain] == [s["score"] for s in got]
     assert all("transcript" not in s for s in plain)
+
+
+def test_discover_and_extend_use_pallas_contradicting_the_device():
+    """``use_pallas=True`` asks for the kernels, which the CPU does not
+    run: it raises before any work instead of being ignored."""
+    S, T = _discovery_pair(21)
+    with pytest.raises(ValueError, match="use_pallas=True contradicts"):
+        pipeline.discover_and_extend(from_reference(S), from_reference(T),
+                                     use_pallas=True, device="cpu")
 
 
 def test_discovered_segment_split_into_windows():
@@ -279,6 +289,12 @@ def test_discovered_segment_split_into_windows():
     want = ref_pipeline.extend_segments(S, T, segments, use_pallas=False,
                                         **kw)
     assert len(got) > len(segments)
+    # the plan extend_segments launched, as extension_plan gives it
+    rows, src_idx, _, launches = pipeline.extension_plan(
+        segments, len(S), len(T), True, pad_a=128, dirs_budget=1 << 17)
+    assert [r["segment"] for r in rows] == [s["segment"] for s in got]
+    assert src_idx == [s["source_index"] for s in got]
+    assert sum(len(idxs) for idxs, *_ in launches) == len(got)
     strip = lambda out: [(s["segment"], s["source_index"], s["score"],
                           s["transcript"], s["origin_start"],
                           s["mutate_start"]) for s in out]

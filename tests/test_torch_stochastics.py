@@ -87,10 +87,11 @@ def test_binomial_to_normal_matches():
     n = np.asarray([0, 1, 10, 1000, 9600, 1e7], np.float32)
     p = np.asarray([0.0, 0.5, 2.0 ** -24, 0.6 ** 12, 0.25, 1.0], np.float32)
     mu_r, sd_r = ref.binomial_to_normal(n, p)
-    mu_p, sd_p = port.binomial_to_normal(n, p)
+    mu_p, sd_p = port.binomial_to_normal(n, p, device="cpu")
     _close(mu_p, mu_r, "binomial mu")
     _close(sd_p, sd_r, "binomial sd")
-    mu_p, sd_p = port.binomial_to_normal(torch.as_tensor(n), 0.3)
+    mu_p, sd_p = port.binomial_to_normal(torch.as_tensor(n), 0.3,
+                                          device="cpu")
     mu_r, sd_r = ref.binomial_to_normal(n, 0.3)
     _close(mu_p, mu_r, "binomial mu, scalar p")
     _close(sd_p, sd_r, "binomial sd, scalar p")
@@ -99,7 +100,7 @@ def test_binomial_to_normal_matches():
 def test_np_log_erfc_matches_across_the_switch():
     z = np.concatenate([np.linspace(-6, 6, 241), [2.999, 3.0, 3.001],
                         np.linspace(3, 60, 115)]).astype(np.float32)
-    got = port.np_log_erfc(z)
+    got = port.np_log_erfc(z, device="cpu")
     assert got.dtype == torch.float32
     _close(got, ref.np_log_erfc(z), "log erfc")
 
@@ -111,7 +112,7 @@ def test_normal_neg_log_pvalue_matches():
                                        np.float32), indexing="ij")
     mu, sd, x = (v.ravel() for v in (mu, sd, x))
     want = np.asarray(ref.normal_neg_log_pvalue(mu, sd, x))
-    got = port.normal_neg_log_pvalue(mu, sd, x)
+    got = port.normal_neg_log_pvalue(mu, sd, x, device="cpu")
     # sd == 0: +inf above mu, 0 at or below it
     zero = sd == 0
     assert np.array_equal(np.isinf(got.numpy()), np.isinf(want))

@@ -5,8 +5,10 @@ Integers are held exactly.  The JAX ``seed_join`` sorts T's keys with an
 unstable sort, so the order of one S position's seeds is unspecified
 there: its seeds are held as a set (and their S positions in order);
 ``seed_join_sorted``'s (d_, a) order is total and held exactly.  The
-port's join without a capacity emits exactly its seeds; past 2^31 - 1
-seeds, where the JAX total wraps negative, it raises OverflowError.
+port has no static capacity: a join emits exactly its seeds, held to
+the JAX package's valid slots (its output at a capacity, cut to the
+total); past 2^31 - 1 seeds, where the JAX total wraps negative, it
+raises OverflowError.
 """
 
 import jax.numpy as jnp
@@ -124,32 +126,44 @@ def test_expand_join_matches(capacity):
     counts[[0, 7, 19]] = 0
     starts = rng.integers(0, 100, 20).astype(np.int32)
     total = int(counts.sum())
-    want = ref.expand_join(jnp.asarray(starts), jnp.asarray(counts),
-                           total if capacity is None else capacity)
-    got = port.expand_join(starts, counts, capacity, **CPU)
-    assert got[3] == int(want[3]) == total
-    for g, w in zip(got[:3], want[:3]):
-        assert np.array_equal(_np(g), np.asarray(w))
+    # the JAX package at its capacity: the first min(capacity, total)
+    # slots are the pairs, the rest masked
+    capacity = total if capacity is None else capacity
+    wq, wt, wv, wtotal = ref.expand_join(jnp.asarray(starts),
+                                         jnp.asarray(counts), capacity)
+    assert int(wtotal) == total
+    n = min(capacity, total)
+    assert np.asarray(wv)[:n].all() and not np.asarray(wv)[n:].any()
+    got = port.expand_join(starts, counts, **CPU)
+    assert [len(_np(g)) for g in got] == [total, total]
+    for g, w in zip(got, (wq, wt)):
+        assert np.array_equal(_np(g)[:n], np.asarray(w)[:n])
 
 
 def test_expand_join_empty():
-    q, t, valid, total = port.expand_join(np.zeros(0, np.int32),
-                                          np.zeros(0, np.int32), 4, **CPU)
-    assert total == 0 and not _np(valid).any() and len(_np(q)) == 4
+    q, t = port.expand_join(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                            **CPU)
+    assert len(_np(q)) == len(_np(t)) == 0
+    q, t = port.expand_join(np.zeros(3, np.int32), np.zeros(3, np.int32),
+                            **CPU)
+    assert len(_np(q)) == len(_np(t)) == 0
 
 
-def test_expand_join_overflow():
+def test_expand_join_overflow(monkeypatch):
     """Past 2^31 - 1 pairs the JAX total wraps negative, and the port
-    raises before it allocates a slot."""
+    raises before it allocates a slot; a join of exactly the limit
+    still fits (the limit lowered here to reach it cheaply)."""
     counts = np.asarray([1 << 30, 1 << 30, 2], np.int32)
     starts = np.zeros(3, np.int32)
     want = ref.expand_join(jnp.asarray(starts), jnp.asarray(counts), 4)
     assert int(want[3]) < 0
     with pytest.raises(OverflowError, match="2\\^31"):
         port.expand_join(starts, counts, **CPU)
-    # at exactly 2^31 - 1 it still fits
-    counts = np.asarray([1 << 30, (1 << 30) - 1], np.int32)
-    assert port.expand_join(starts[:2], counts, 2, **CPU)[3] == (1 << 31) - 1
+    monkeypatch.setattr(port, "MAX_SEEDS", 9)
+    counts = np.asarray([4, 5], np.int32)
+    assert len(_np(port.expand_join(starts[:2], counts, **CPU)[0])) == 9
+    with pytest.raises(OverflowError, match="2\\^31"):
+        port.expand_join(starts[:2], counts + 1, **CPU)
 
 
 def test_seed_index_overflow_error(monkeypatch):
@@ -189,21 +203,20 @@ def test_seed_joins_match(seed, L0, L1, wordlen):
     cap = max(total, 1)
     want = ref.seed_join(*jargs, capacity=cap)
     got = port.seed_join(*args, **CPU)
-    assert got["total"] == int(want["total"]) == total
+    assert int(want["total"]) == total
     wi, wj, wv = (np.asarray(want[k]) for k in ("i", "j", "valid"))
     gi, gj = _np(got["i"]), _np(got["j"])
-    assert len(gi) == total and _np(got["valid"]).all()
+    assert len(gi) == len(gj) == total == wv.sum()
     assert np.array_equal(gi, wi[wv])
     assert sorted(zip(gi, gj)) == sorted(zip(wi[wv], wj[wv]))
     # every pair is a k-mer match
     for i, j in zip(gi, gj):
         assert np.array_equal(s[i:i + wordlen], t[j:j + wordlen])
-    # with the JAX package's capacity (slots past the total masked)
-    got = port.seed_join(*args, capacity=cap + 5, **CPU)
-    assert not _np(got["valid"])[total:].any()
-    assert (_np(got["i"])[total:] == 0).all()
+    # the JAX package's sorted join at a capacity past the total: its
+    # first total slots are the port's, the rest the sentinel tail
     want = ref.seed_join_sorted(*jargs, capacity=cap + 5)
-    got = port.seed_join_sorted(*args, capacity=cap + 5, **CPU)
+    got = port.seed_join_sorted(*args, **CPU)
+    assert int(want["total"]) == total
+    assert (np.asarray(want["d_"])[total:] == port.KEY_SENTINEL).all()
     for k in ("d_", "a"):
-        assert np.array_equal(_np(got[k]), np.asarray(want[k])), k
-    assert got["total"] == int(want["total"])
+        assert np.array_equal(_np(got[k]), np.asarray(want[k])[:total]), k
