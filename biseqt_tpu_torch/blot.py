@@ -2,7 +2,8 @@
 
 The port of :mod:`biseqt_tpu.blot` (the reference's ``biseqt/blot.py —
 band_radius, band_radii, expected_overlap_len, WordBlot,
-WordBlotOverlap``).
+WordBlotOverlap, WordBlotOverlapRef, WordBlotLocalRef,
+WordBlotMultiple``).
 
 Seeds (exact k-mer matches) are viewed in (diagonal d = i - j,
 antidiagonal a = i + j) coordinates.  A local alignment of length K with
@@ -20,26 +21,34 @@ components over the occupied cells (``scipy.ndimage``), the sparse
 run merging and the band queries run on the host.
 
 The fixed-reference modes (``WordBlotOverlapRef``, ``WordBlotLocalRef``)
-and ``WordBlotMultiple`` are not ported yet.
+sort the reference's k-mer table once on ``device`` and serve each
+query's seeds on the host (packing, binary searches, a ragged
+expansion); ``WordBlotMultiple`` clusters N-way seeds
+(:class:`.seeds.SeedIndexMultiple`) on the host and scores every
+candidate in one batched call on ``device``.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterable, List
 
 import numpy as np
 from scipy import ndimage
 from scipy.special import erfcinv
+import torch
 
-from .ops import blot_stats
+from .kmers import as_kmer_keys_np
+from .ops import blot_stats, tables
 from .ops.banded_dp import resolve_device
 from .profiling import Phase
-from .seeds import SeedIndex
+from .seeds import SeedIndex, SeedIndexMultiple
 from .sequence import Sequence
 
 __all__ = [
     "P_MIN_EPS", "band_radius", "band_radii", "expected_overlap_len",
-    "WordBlot", "WordBlotOverlap",
+    "WordBlot", "WordBlotOverlap", "WordBlotOverlapRef", "WordBlotLocalRef",
+    "WordBlotMultiple",
 ]
 
 
@@ -54,18 +63,26 @@ __all__ = [
 P_MIN_EPS = 1e-5
 
 
+def _batched_stats(ns, areas, seglens, wordlen: int, alphabet_len: int,
+                   device):
+    """(p-hat, s0, s1) numpy arrays for per-candidate (n, area, seglen)
+    columns, rounded to float32, in one pass on ``device``.  Shared by
+    the pairwise (:func:`_score_components`) and N-way paths."""
+    with Phase("blot.stats"):
+        ns, areas, seglens = (np.float32(x) for x in (ns, areas, seglens))
+        p = blot_stats.estimate_match_probability(ns, seglens, wordlen,
+                                                  device=device)
+        s0, s1 = blot_stats.h0_h1_scores(ns, areas, seglens, p, wordlen,
+                                         alphabet_len, device=device)
+        return tuple(torch.stack([p, s0, s1]).cpu().numpy())
+
+
 def _score_components(cand, wordlen: int, alphabet_len: int, device):
     """(p-hat, s0, s1) numpy arrays for candidate boxes
     [(d_lo, d_hi, a_lo, a_hi, n, seglen)], in one pass on ``device``."""
     arr = np.asarray(cand, np.float64)
-    ns, seglens = arr[:, 4], arr[:, 5]
-    areas = (arr[:, 1] - arr[:, 0] + 1) * seglens
-    ns, areas, seglens = (np.float32(x) for x in (ns, areas, seglens))
-    p = blot_stats.estimate_match_probability(ns, seglens, wordlen,
-                                              device=device)
-    s0, s1 = blot_stats.h0_h1_scores(ns, areas, seglens, p, wordlen,
-                                     alphabet_len, device=device)
-    return tuple(x.cpu().numpy() for x in (p, s0, s1))
+    return _batched_stats(arr[:, 4], (arr[:, 1] - arr[:, 0] + 1) * arr[:, 5],
+                          arr[:, 5], wordlen, alphabet_len, device)
 
 
 def band_radius(K, gap_prob, sensitivity=0.99):
@@ -206,22 +223,25 @@ class WordBlot:
         components, and, where the grid would pass ``MAX_GRID_CELLS``, a
         sparse merge of sorted runs (O(#seeds log)).
         """
+        with Phase("blot.discover"):
+            segs = list(self._similar_segments_inner(K_min, p_min,
+                                                     at_least_one))
+        yield from segs
+
+    def _candidates(self, K_min, p_min):
+        """Candidate boxes [(d_lo, d_hi, a_lo, a_hi, n, seglen)] of the
+        assembler the grid's size picks."""
         r = self.band_radius(K_min)
         acell = max(2 * K_min, 2)
         dcell = max(r, 1)
         n_d = (len(self.S) + len(self.T)) // dcell + 2
         n_a = (len(self.S) + len(self.T)) // acell + 2
-        with Phase("blot.discover"):
-            segs = list(self._similar_segments_inner(
-                K_min, p_min, at_least_one, dcell, acell, n_d * n_a))
-        yield from segs
+        if n_d * n_a > self.MAX_GRID_CELLS:
+            return self._collect_sparse(K_min, dcell, acell)
+        return self._collect_components(K_min, p_min)
 
-    def _similar_segments_inner(self, K_min, p_min, at_least_one, dcell,
-                                acell, n_cells):
-        if n_cells > self.MAX_GRID_CELLS:
-            cand = self._collect_sparse(K_min, dcell, acell)
-        else:
-            cand = self._collect_components(K_min, p_min)
+    def _similar_segments_inner(self, K_min, p_min, at_least_one):
+        cand = self._candidates(K_min, p_min)
         found = 0
         for seg in self._emit_components(cand, p_min):
             found += 1
@@ -455,3 +475,317 @@ class WordBlotOverlap(WordBlot):
                     np.zeros(counts.shape[0]))
         diags, _, _, _, _, p_hat = prof
         return diags, p_hat
+
+
+# ---------------------------------------------------------------------------
+# Fixed-reference modes
+# ---------------------------------------------------------------------------
+
+class _FixedRefBase:
+    """Shared machinery of the fixed-reference modes: the reference's
+    k-mer positions as one sorted table (keys ascending, positions
+    ascending within a key), sorted once on ``device`` (``"cuda"`` by
+    default) and copied to the host, and an adapter that dresses a
+    query's seeds up as a :class:`WordBlot`-family object.  A query's
+    seeds are served on the host (packing, binary searches and a ragged
+    expansion, O(|query| + hits)); only its candidates' statistics run
+    on ``device``."""
+
+    def __init__(self, ref: Sequence, wordlen: int = 8, g_max: float = 0.3,
+                 sensitivity: float = 0.99, device="cuda"):
+        self.device = resolve_device(device)
+        self.ref = ref
+        self.wordlen = int(wordlen)
+        self.g_max = float(g_max)
+        self.sensitivity = float(sensitivity)
+        with Phase("blot.ref_index"):
+            keys, _, poss, n_valid = tables.build_kmer_table(
+                ref.to_array()[None, :], [len(ref)], self.wordlen,
+                len(ref.alphabet), device=self.device)
+            n = int(n_valid)
+            # one copy of the (key, pos) columns to the host
+            kp = torch.stack([keys[:n], poss[:n]]).to(torch.int64)
+            self._ref_keys, self._ref_pos = kp.cpu().numpy()
+
+    def _as_wordblot(self, cls, query: Sequence):
+        wb = cls.__new__(cls)
+        wb.device = self.device
+        wb.S, wb.T = query, self.ref
+        wb.wordlen = self.wordlen
+        wb.g_max, wb.sensitivity = self.g_max, self.sensitivity
+        wb.seed_index = _SeedsFromRefIndex(
+            query, self.ref, self.wordlen, self._ref_keys, self._ref_pos)
+        return wb
+
+
+class WordBlotOverlapRef(_FixedRefBase):
+    """Overlap detection of many queries against one fixed read: the
+    read's k-mer table is built once, and each query's overlap band
+    statistics stream through in O(|query| + hits)."""
+
+    def highest_scoring_overlap_band(self, query: Sequence, **kw):
+        return self._as_wordblot(
+            WordBlotOverlap, query).highest_scoring_overlap_band(**kw)
+
+
+class WordBlotLocalRef(_FixedRefBase):
+    """Many queries against one fixed reference, its k-mer table built
+    once; each query streams through in O(|query| + hits)."""
+
+    def similar_segments(self, query: Sequence, K_min: int, p_min: float,
+                         **kw):
+        """Similar segments between ``query`` (as S) and the reference (as
+        T): :meth:`WordBlot.similar_segments` over seeds served from the
+        reference's table."""
+        return self._as_wordblot(WordBlot, query).similar_segments(
+            K_min, p_min, **kw)
+
+    def similar_segments_batch(self, queries, K_min: int, p_min: float):
+        """Many queries with one call of the statistics on ``device`` for
+        all their candidates; returns one list of segment dicts per query,
+        equal to :meth:`similar_segments` query by query."""
+        cands = [self._as_wordblot(WordBlot, q)._candidates(K_min, p_min)
+                 for q in queries]
+        out = [[] for _ in queries]
+        flat = [c for cc in cands for c in cc]
+        if not flat:
+            return out
+        p, s0, s1 = _score_components(
+            flat, self.wordlen, len(self.ref.alphabet), self.device)
+        lt = len(self.ref)
+        k = 0
+        for qi, cc in enumerate(cands):
+            for (d_lo, d_hi, a_lo, a_hi, n, seglen) in cc:
+                if p[k] >= p_min - P_MIN_EPS:
+                    out[qi].append({
+                        "segment": ((int(d_lo) - lt, int(d_hi) - lt),
+                                    (int(a_lo), int(a_hi))),
+                        "p": float(p[k]),
+                        "score": (float(s0[k]), float(s1[k])),
+                        "num_seeds": int(n),
+                    })
+                k += 1
+        return out
+
+
+class _SeedsFromRefIndex(SeedIndex):
+    """A query's :class:`SeedIndex` against a reference's prebuilt sorted
+    k-mer table, on the host: the query's k-mers packed, two binary
+    searches over the reference keys for each window's hit run, and the
+    ragged runs expanded into flat (i, j) arrays by inverting their
+    cumulative counts (the numpy mirror of ``ops.tables.expand_join``),
+    then sorted by (d_, a)."""
+
+    def __init__(self, S, T, wordlen, ref_keys, ref_pos):
+        with Phase("seeds.from_ref"):
+            self.S, self.T = S, T
+            self.wordlen = wordlen
+            self.alphabet = S.alphabet
+            self.path = None
+            lt = len(T)
+            qk = as_kmer_keys_np(S.to_array(np.int64), wordlen,
+                                 len(S.alphabet))
+            starts = np.searchsorted(ref_keys, qk, side="left")
+            ends = np.searchsorted(ref_keys, qk, side="right")
+            counts = np.where(qk >= 0, ends - starts, 0)
+            cum = np.cumsum(counts)
+            total = int(cum[-1]) if counts.shape[0] else 0
+            slot = np.arange(total)
+            i = np.searchsorted(cum, slot, side="right")
+            rank = slot - (cum[i] - counts[i])
+            j = ref_pos[starts[i] + rank]
+            d_ = i - j + lt
+            a = i + j
+            order = np.lexsort((a, d_))
+            self._d_ = d_[order]
+            self._a = a[order]
+            self._acap = len(S) + lt + 1
+            self._comp = self._d_ * self._acap + self._a
+
+
+# ---------------------------------------------------------------------------
+# Multiple sequences
+# ---------------------------------------------------------------------------
+
+class WordBlotMultiple:
+    """N-way similar segments over :class:`.seeds.SeedIndexMultiple`:
+    seeds are position tuples (one per sequence); a similar segment is a
+    tuple of diagonal bands (one per non-pivot sequence) and an
+    antidiagonal range, dense in N-way seeds.  ``device`` (``"cuda"`` by
+    default) sorts the k-mer table and scores the candidates; the
+    clustering runs on the host."""
+
+    def __init__(self, *seqs: Sequence, wordlen: int = 8, g_max: float = 0.3,
+                 sensitivity: float = 0.99, device="cuda", **seed_index_kw):
+        assert len(seqs) >= 2
+        self.device = resolve_device(device)
+        self.seqs = seqs
+        self.wordlen = int(wordlen)
+        self.g_max = float(g_max)
+        self.sensitivity = float(sensitivity)
+        # max_hits_per_kmer and max_tuples_per_kmer pass through
+        self.seed_index = SeedIndexMultiple(*seqs, wordlen=wordlen,
+                                            device=self.device,
+                                            **seed_index_kw)
+
+    def band_radius(self, K) -> int:
+        return int(band_radius(K, self.g_max, self.sensitivity))
+
+    def estimate_match_probability(self, num_seeds, seglen) -> float:
+        # an N-way seed survives in all N sequences: E[n] ≈ K p^((N-1) w)
+        n_other = len(self.seqs) - 1
+        n = max(float(num_seeds), 0.0)
+        K = max(float(seglen), 1.0)
+        return float(np.clip(
+            (n / K) ** (1.0 / (self.wordlen * n_other)), 0.0, 1.0))
+
+    def score_seeds(self, K: int) -> List[Dict]:
+        """Per-seed local match-probability estimates, the N-way analog of
+        :meth:`WordBlot.score_seeds`: each seed is bucketed by its
+        diagonal tuple (cell size = band radius on each axis) and
+        antidiagonal cell; its neighbourhood count is the number of seeds
+        within ±1 cell along every axis, and p̂ is the ``1/((N-1) w)``-th
+        root of the neighbourhood's density."""
+        seeds = self.seed_index.seeds()
+        if not seeds:
+            return []
+        r = max(self.band_radius(K), 1)
+        acell = max(2 * K, 2)
+        # cell key per seed: (N-1 diagonal cells, antidiagonal cell)
+        cells = []
+        counts: Dict[tuple, int] = {}
+        for tup in seeds:
+            i0 = tup[0]
+            key = tuple((i0 - p) // r for p in tup[1:]) \
+                + ((i0 + tup[1]) // acell,)
+            cells.append(key)
+            counts[key] = counts.get(key, 0) + 1
+        # neighbourhood = 3^N cells; N is small
+        n_axes = len(cells[0])
+        offsets = list(itertools.product((-1, 0, 1), repeat=n_axes))
+        neigh_cache: Dict[tuple, int] = {}
+
+        def neighborhood(key):
+            got = neigh_cache.get(key)
+            if got is None:
+                got = sum(
+                    counts.get(tuple(k + o for k, o in zip(key, off)), 0)
+                    for off in offsets)
+                neigh_cache[key] = got
+            return got
+
+        # the pairwise score_seeds' calibration: the 3-cell
+        # a-neighbourhood spans ~3K alignment columns
+        seg_cols = min(3 * acell / 2.0,
+                       float(min(len(s) for s in self.seqs)))
+        w_eff = self.wordlen * (len(self.seqs) - 1)
+        out = []
+        for tup, key in zip(seeds, cells):
+            n = neighborhood(key)
+            p = float(np.clip((n / seg_cols) ** (1.0 / w_eff), 0.0, 1.0))
+            out.append({"seed": tuple(int(x) for x in tup),
+                        "neighs": int(n), "p": p})
+        return out
+
+    def similar_segments(self, K_min: int, p_min: float,
+                         min_score: float = 25.0) -> Iterable[Dict]:
+        """Cluster N-way seeds by their diagonal tuple and antidiagonal
+        cell.
+
+        Yields ``{'segment': (((d_lo, d_hi),) * (N-1), (a_min, a_max)),
+        'p': p̂, 'score': (S0, S1), 'num_seeds': n}``.  A candidate must
+        reject H0 (``S0 >= min_score``; ``None`` turns the gate off) as
+        well as reach p̂ >= p_min: p̂ takes the ``1/((N-1) w)``-th root
+        of the density, so background k-mers at a low ``p_min`` clear
+        it while their count is explained by the ``|Σ|^-((N-1) w)``
+        background rate.  The H0 / H1 statistics are the pairwise ones
+        with word length ``(N-1) * w`` over the area Π band widths ×
+        seglen.
+        """
+        seeds = self.seed_index.seeds()
+        if not seeds:
+            return
+        r = self.band_radius(K_min)
+        acell = max(2 * K_min, 2)
+        buckets: Dict[tuple, list] = {}
+        for tup in seeds:
+            i0 = tup[0]
+            ds = tuple((i0 - p) // max(r, 1) for p in tup[1:])
+            a = i0 + tup[1]
+            buckets.setdefault(ds, []).append((tup, a))
+        # merge buckets whose diagonal tuples are axis neighbours: an
+        # alignment whose pivot diagonal drifts across a cell boundary
+        # (the drift's scale is r by construction) would otherwise split
+        # into fragments shorter than K_min
+        parent = {ds: ds for ds in buckets}
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for ds in list(buckets):
+            for axis in range(len(ds)):
+                nb = ds[:axis] + (ds[axis] + 1,) + ds[axis + 1:]
+                if nb in buckets:
+                    ra, rb = find(ds), find(nb)
+                    if ra != rb:
+                        parent[rb] = ra
+        clusters: Dict[tuple, dict] = {}
+        for ds, members in buckets.items():
+            c = clusters.setdefault(find(ds), {"members": [], "cells": []})
+            c["members"].extend(members)
+            c["cells"].append(ds)
+
+        max_cols = float(min(len(s) for s in self.seqs))
+        rr = max(r, 1)
+        # collect every candidate run, then score them all in one call
+        pend = []
+        for c in clusters.values():
+            members = sorted(c["members"], key=lambda m: m[1])
+            # split into antidiagonal runs at gaps > 2 * acell
+            run = [members[0]]
+            runs = []
+            for m in members[1:]:
+                if m[1] - run[-1][1] > 2 * acell:
+                    runs.append(run)
+                    run = []
+                run.append(m)
+            runs.append(run)
+            d_bands = tuple(
+                (min(ds[ax] for ds in c["cells"]) * rr - r,
+                 (max(ds[ax] for ds in c["cells"]) + 1) * rr + r)
+                for ax in range(len(c["cells"][0])))
+            # tuple-position area: Π (non-pivot band widths) × seglen
+            width_prod = 1.0
+            for (dl, dh) in d_bands:
+                width_prod *= float(dh - dl + 1)
+            for run in runs:
+                a_lo, a_hi = run[0][1], run[-1][1]
+                seglen = max(min((a_hi - a_lo) / 2.0, max_cols),
+                             float(self.wordlen))
+                if seglen < K_min:
+                    continue
+                pend.append((d_bands, int(a_lo), int(a_hi), len(run),
+                             seglen, width_prod * seglen))
+        if not pend:
+            return
+        w_eff = self.wordlen * (len(self.seqs) - 1)
+        cols = np.asarray([(n, area, seglen)
+                           for (_, _, _, n, seglen, area) in pend],
+                          np.float64)
+        p_hats, s0s, s1s = _batched_stats(
+            cols[:, 0], cols[:, 1], cols[:, 2], w_eff,
+            len(self.seqs[0].alphabet), self.device)
+        for k, (d_bands, a_lo, a_hi, n, seglen, _) in enumerate(pend):
+            if p_hats[k] < p_min - P_MIN_EPS:
+                continue
+            if min_score is not None and s0s[k] < min_score:
+                continue
+            yield {
+                "segment": (d_bands, (a_lo, a_hi)),
+                "p": float(p_hats[k]),
+                "score": (float(s0s[k]), float(s1s[k])),
+                "num_seeds": n,
+            }

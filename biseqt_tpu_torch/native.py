@@ -7,8 +7,9 @@ against drift), and compiles it with the flags of the JAX package's
 directory the first time it is needed.  Bound: :func:`align` and
 :func:`traceback` (the host DP engine behind ``pw.Aligner(backend=
 "native")``), :func:`traceback_batch_ad` (the host walker over an
-antidiagonal dirs plane) and :func:`compact_sweep_ops_t` (op traces ->
-MSID transcripts).
+antidiagonal dirs plane), :func:`compact_sweep_ops_t` (op traces ->
+MSID transcripts) and :func:`fasta_pack` (the FASTA packer behind
+``database.DB.load_fasta``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 
 __all__ = [
     "available", "align", "traceback", "traceback_batch_ad",
-    "compact_sweep_ops_t",
+    "compact_sweep_ops_t", "dna_code_map", "fasta_pack",
     "MODE_FREE_START_EDGES", "MODE_LOCAL_START",
     "MODE_FREE_END_EDGES", "MODE_LOCAL_END",
 ]
@@ -109,6 +110,17 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_fasta_scan.restype = ctypes.c_int
+    lib.bst_fasta_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_fasta_pack.restype = ctypes.c_int64
+    lib.bst_fasta_pack.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
     ]
     _lib = lib
     return lib
@@ -326,3 +338,81 @@ def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
         si[started] = 0
         sj[started] = 0
     return _decode(ops_buf, ops_len), si, sj
+
+
+def dna_code_map(letters: str = "ACGT", lowercase: bool = True):
+    """256-entry byte -> code map for the FASTA packer (-1 = skip)."""
+    m = np.full((256,), -1, np.int8)
+    for i, ch in enumerate(letters):
+        m[ord(ch)] = i
+        if lowercase:
+            m[ord(ch.lower())] = i
+    return m
+
+
+def fasta_pack(path: str, code_map=None):
+    """Stream-parse a FASTA file into packed codes at C speed.
+
+    Returns ``(codes int8[total], offsets int64[n], lengths int64[n],
+    names list[str], header_pos int64[n])``: record r's codes are
+    ``codes[offsets[r]:offsets[r] + lengths[r]]`` and ``header_pos[r]``
+    is the byte offset of its ``>`` line (the DB's ``source_pos``).
+
+    Raises ``ValueError`` if the file holds a non-whitespace sequence
+    byte that ``code_map`` (256 int8 entries, -1 = unmapped; the DNA map
+    by default) does not cover: skipping a letter would shift every
+    later coordinate of its record.  Raises ``OSError`` if the file
+    cannot be read.
+    """
+    lib = _load()
+    if code_map is None:
+        code_map = dna_code_map()
+    code_map = np.ascontiguousarray(code_map, np.int8)
+    if code_map.shape != (256,):
+        raise ValueError("code_map must have 256 entries, got %s"
+                         % (code_map.shape,))
+    n = ctypes.c_int64()
+    total = ctypes.c_int64()
+    n_unknown = ctypes.c_int64()
+    first_unknown = ctypes.c_int()
+    unknown_pos = ctypes.c_int64()
+    rc = lib.bst_fasta_scan(
+        path.encode(), code_map.ctypes.data,
+        ctypes.byref(n), ctypes.byref(total),
+        ctypes.byref(n_unknown), ctypes.byref(first_unknown),
+        ctypes.byref(unknown_pos),
+    )
+    if rc != 0:
+        raise OSError("cannot read %s" % path)
+    if int(n_unknown.value):
+        raise ValueError(
+            "letter %r not in alphabet (%d unmapped byte(s) in %s, "
+            "first at file offset %d)" % (
+                chr(int(first_unknown.value)), int(n_unknown.value),
+                path, int(unknown_pos.value)))
+    nrec = int(n.value)
+    codes = np.zeros((int(total.value),), np.int8)
+    offsets = np.zeros((max(nrec, 1),), np.int64)
+    lengths = np.zeros((max(nrec, 1),), np.int64)
+    header_pos = np.zeros((max(nrec, 1),), np.int64)
+    names_cap = 1 << 20
+    while True:
+        names_buf = ctypes.create_string_buffer(names_cap)
+        needed = ctypes.c_int64()
+        got = lib.bst_fasta_pack(
+            path.encode(), code_map.ctypes.data,
+            codes.ctypes.data, offsets.ctypes.data, lengths.ctypes.data,
+            header_pos.ctypes.data,
+            names_buf, names_cap, ctypes.byref(needed),
+        )
+        if got != nrec:
+            raise RuntimeError("bst_fasta_pack read %d records of %s, the"
+                               " scan %d" % (got, path, nrec))
+        if needed.value <= names_cap:
+            break
+        # truncated names are untrustworthy (a dropped NUL would shift
+        # every later name): retry with the reported requirement
+        names_cap = int(needed.value) + 1
+    names = names_buf.raw.split(b"\0")[:nrec]
+    return (codes, offsets[:nrec], lengths[:nrec],
+            [x.decode("ascii", "replace") for x in names], header_pos[:nrec])

@@ -1,9 +1,9 @@
 """Seed indexing: exact k-mer matches in diagonal/antidiagonal coordinates.
 
 The port of :mod:`biseqt_tpu.seeds` (the reference's ``biseqt/seeds.py
-— SeedIndex``).  Seeds are enumerated by a sorted-merge join on the
-device (:func:`.ops.tables.seed_join_sorted`) and kept in band
-coordinates
+— SeedIndex, SeedIndexMultiple``).  Seeds are enumerated by a
+sorted-merge join on the device (:func:`.ops.tables.seed_join_sorted`)
+and kept in band coordinates
 
     d = i - j   (diagonal; stored shifted as d_ = d + |T| >= 0)
     a = i + j   (antidiagonal)
@@ -15,7 +15,10 @@ snapshot (``path=``, a ``.npz`` of those arrays and the sequences'
 content ids) is the JAX package's format: either package loads the
 other's.
 
-``SeedIndexMultiple`` (N-way seeds) is not ported yet.
+``SeedIndexMultiple`` enumerates N-way seeds, one position per
+sequence: the k-mer table of all N sequences is sorted on the device
+(:func:`.ops.tables.nway_shared_seeds`) and the capped cross products
+are expanded on the host.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ import torch
 from .ops import tables
 from .ops.banded_dp import resolve_device
 from .profiling import Phase
-from .sequence import Sequence
+from .sequence import Sequence, pack_sequences
 
-__all__ = ["Seed", "SeedIndex"]
+__all__ = ["Seed", "SeedIndex", "SeedIndexMultiple"]
 
 
 class Seed(tuple):
@@ -187,3 +190,128 @@ class SeedIndex:
             m = (a_arr >= a_band[0]) & (a_arr <= a_band[1])
             d_arr, a_arr = d_arr[m], a_arr[m]
         return d_arr, a_arr
+
+
+class SeedIndexMultiple:
+    """Seeds shared by N >= 2 sequences (k-mers present in every one).
+
+    A seed is an N-tuple of positions, one per sequence, where the same
+    k-mer occurs: for every k-mer present in all N sequences, the cross
+    product of its first ``max_hits_per_kmer`` positions in each, with
+    the per-sequence cap lowered for a k-mer whose product would exceed
+    ``max_tuples_per_kmer`` (:func:`_fit_tuple_budget`).  The k-mer table
+    is sorted on ``device`` (``"cuda"`` by default; it raises where no
+    card is present); the expansion runs on the host.  Seeds are sorted
+    tuples, equal to both tiers of the JAX package.
+    """
+
+    def __init__(self, *seqs: Sequence, wordlen: int = 8,
+                 max_hits_per_kmer: int = 8, device="cuda",
+                 max_tuples_per_kmer: int = 4096):
+        assert len(seqs) >= 2
+        self.device = resolve_device(device)
+        self.seqs = seqs
+        self.wordlen = int(wordlen)
+        self.alphabet = seqs[0].alphabet
+        h = int(max_hits_per_kmer)
+        if h < 1:
+            raise ValueError("max_hits_per_kmer must be >= 1, got %d" % h)
+        # the per-sequence cap alone is exponential in N: one
+        # low-complexity k-mer with >= h occurrences in each of N = 10
+        # sequences would expand to h^N tuples
+        self._max_tuples = max(int(max_tuples_per_kmer), 1)
+        self._build(h)
+
+    def _build(self, h: int):
+        codes, lengths = pack_sequences(list(self.seqs))
+        kk, ss, pp = (x.cpu().numpy() for x in tables.nway_shared_seeds(
+            codes, lengths, self.wordlen, len(self.alphabet),
+            device=self.device))
+        valid = kk != tables.KEY_SENTINEL
+        kk, ss, pp = kk[valid], ss[valid], pp[valid]
+        N = len(self.seqs)
+        self._seeds = []
+        if kk.size == 0:
+            return
+        kk = kk.astype(np.int64)
+        # cap every (key, seq) subgroup at its first h rows (the table is
+        # (key, seq, pos)-sorted, so subgroup order is position order)
+        idx = np.arange(kk.shape[0])
+        sub = np.empty(kk.shape, bool)
+        sub[0] = True
+        sub[1:] = (kk[1:] != kk[:-1]) | (ss[1:] != ss[:-1])
+        first = np.maximum.accumulate(np.where(sub, idx, 0))
+        keep = (idx - first) < h
+        kk, ss, pp, sub = kk[keep], ss[keep], pp[keep], sub[keep]
+        # key runs; a key whose run holds N subgroups touches every
+        # sequence (seq ids ascend within a key, so subgroup s of a
+        # qualifying key belongs to sequence s)
+        ks = np.empty(kk.shape, bool)
+        ks[0] = True
+        ks[1:] = kk[1:] != kk[:-1]
+        key_id = np.cumsum(ks) - 1
+        n_keys = int(key_id[-1]) + 1
+        nsub = np.bincount(key_id[sub], minlength=n_keys)
+        qual = np.flatnonzero(nsub == N)
+        if qual.size == 0:
+            return
+        qmap = np.full(n_keys, -1, np.int64)
+        qmap[qual] = np.arange(qual.size)
+        g_row = qmap[key_id]
+        rows = g_row >= 0
+        idx2 = np.arange(kk.shape[0])
+        rank2 = idx2 - np.maximum.accumulate(np.where(sub, idx2, 0))
+        g_row, s_row, p_row, r_row = (
+            g_row[rows], ss[rows], pp[rows], rank2[rows])
+        G = qual.size
+        # per-(key, seq) capped hit counts and a [G, N, h] position table
+        c = np.bincount(g_row * N + s_row, minlength=G * N).reshape(G, N)
+        post = np.zeros((G, N, h), np.int64)
+        post[g_row, s_row, r_row] = p_row
+        c = _fit_tuple_budget(c, h, self._max_tuples)
+        # cross-product expansion, the last sequence varying fastest:
+        # stride[:, s] = product of the counts of sequences after s
+        rc = np.cumprod(c[:, ::-1], axis=1)[:, ::-1]
+        stride = np.concatenate([rc[:, 1:], np.ones((G, 1), np.int64)],
+                                axis=1)
+        totals = rc[:, 0]
+        offsets = np.cumsum(totals)
+        starts = offsets - totals
+        m = np.arange(int(offsets[-1]))
+        gq = np.searchsorted(offsets, m, side="right")
+        t = m - starts[gq]
+        cols = np.empty((m.shape[0], N), np.int64)
+        for s in range(N):
+            cols[:, s] = post[gq, s, (t // stride[gq, s]) % c[gq, s]]
+        order = np.lexsort(tuple(cols[:, s] for s in reversed(range(N))))
+        self._seeds = [tuple(int(x) for x in r) for r in cols[order]]
+
+    def __len__(self):
+        return len(self._seeds)
+
+    def seeds(self):
+        return list(self._seeds)
+
+    def seed_count(self):
+        return len(self._seeds)
+
+
+def _fit_tuple_budget(c, h: int, max_tuples: int):
+    """Lower per-sequence hit caps until each k-mer's cross-product size
+    fits the budget.
+
+    ``c``: [G, N] int64 per-(k-mer, sequence) capped hit counts
+    (``c <= h``).  Returns adjusted counts: for every row whose product
+    exceeds ``max_tuples``, counts are re-capped at the largest
+    ``h' < h`` that fits (down to 1: a product of 1**N always fits).
+    """
+    c = np.asarray(c, np.int64).copy()
+    # float64 products: int64 overflows at large N (8^22 > 2^63)
+    prod = c.astype(np.float64).prod(axis=1)
+    for hp in range(h - 1, 0, -1):
+        over = prod > max_tuples
+        if not over.any():
+            break
+        c[over] = np.minimum(c[over], hp)
+        prod[over] = c[over].astype(np.float64).prod(axis=1)
+    return c

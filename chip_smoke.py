@@ -17,7 +17,16 @@ JAX package's probe shapes.  The discovery path,
 device="cuda")``, runs at the JAX package's genome-homology config with
 transcripts: two 5 Mbp genomes, the second the first's 8 blocks mutated
 (8% substitutions, gap open and extend 0.02) and shuffled, word length
-12, g_max 0.1, K_min 78125, p_min 0.6.
+12, g_max 0.1, K_min 78125, p_min 0.6.  The mapping path runs the
+JAX package's ingest, index and fixed-reference configs: a 5 Mbp
+reference and 1000 reads of 10 kbp (each a random locus of it through
+10% errors) written as FASTA, ingested by ``database.DB.load_fasta``
+with a ``kmers.KmerIndex`` subscribed to the reads, the first 100
+reads mapped by ``blot.WordBlotLocalRef`` (word length 12, g_max 0.25,
+K_min 2000, p_min 0.5) and each extended with a transcript by
+``pipeline.extend_segments``.  The N-way path runs
+``blot.WordBlotMultiple`` on 10 sequences of ~100 kbp sharing two
+20 kbp blocks (word length 12, K_min 5000, p_min 0.75).
 
 Phases, each of which exits non-zero on failure:
 
@@ -85,7 +94,27 @@ Phases, each of which exits non-zero on failure:
    the dirs plane on its live slots) and the walk kernel (trace bytes,
    cursors) to their plain twins on the card, exactly, and times the
    twins; and times both kernels on every launch of the plan beside
-   their bounds.
+   their bounds;
+11. runs the mapping path: writes the reference and the reads as
+   FASTA, ingests the reference, then the reads with the index
+   subscribed, and requires the DB to give back every letter; builds
+   the read index on the card and holds it to the same build on the
+   CPU (keys, sequence ids, positions exactly) and a few k-mers' hits
+   to a numpy scan; maps the 100 queries serially and in one batch on
+   the card and in one batch on the CPU, requiring batch = serial and
+   card = CPU (segments and seed counts exactly, p-hat, S0 and S1
+   within rtol 1e-5, atol 1e-6) and locus recall 1.0; extends each
+   query's top segment with a transcript with the DP and walk kernels'
+   launch counters set to 0, requiring one launch of each per launch
+   of the plans, every transcript rescoring exactly to its score; holds
+   both kernels to their plain twins on the first query's launch,
+   exactly; and times ingest, the index, the queries (the share of the
+   statistics on the card), the extension and each launch of both
+   kernels;
+12. runs the N-way path on the card and on the CPU, requiring the
+   same seed tuples, the same segments (p-hat, S0 and S1 within rtol
+   1e-5, atol 1e-6) and block recall 1.0, and times the seed build and
+   discovery.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
@@ -147,6 +176,23 @@ GENOME_SEED = 20261018
 DISCOVERY = dict(wordlen=12, g_max=0.1, p_min=0.6,
                  K_min=GENOME["size"] // GENOME["blocks"] // 8)
 DISCOVERY_TOL = dict(rtol=1e-5, atol=1e-6)   # p-hat, S0, S1: card vs CPU
+# phase 11: reads mapped to a reference (BASELINE.md configs 6, 3 and 2f:
+# experiments/ingest_bench.py, index_build_bench.py, fixed_ref_bench.py):
+# every read a random locus through 10% errors (substitutions 0.06, gap
+# open 0.02, gap extend 0.05), the first `queries` of them mapped
+MAPPING = dict(ref=5_000_000, reads=1000, read_len=10_000, queries=100,
+               sub=0.06, go=0.02, ge=0.05, index_wordlen=8)
+MAPPING_SEED = 20261019
+MAPPER = dict(wordlen=12, g_max=0.25)
+MAPPING_QUERY = dict(K_min=2000, p_min=0.5)
+LOCUS_RADIUS = 200        # fixed_ref_bench.py's diagonal tolerance
+# phase 12: N-way homology (BASELINE.md config 1b,
+# experiments/multiple_homology.py): n sequences, each two mutated
+# blocks between random flanks
+NWAY = dict(n=10, block=20_000, flank=(15_000, 25_000), sub=0.03, go=0.005,
+            ge=0.02)
+NWAY_SEED = 7
+NWAY_QUERY = dict(K_min=5000, p_min=0.75)
 
 
 def fail(msg):
@@ -324,8 +370,6 @@ def genome_phase(dev, card, subst):
     from biseqt_tpu_torch.blot import WordBlot
     from biseqt_tpu_torch.ops import dp_ad, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags
-    from biseqt_tpu_torch.profiling import (FP32_OPS_PER_S, INT32_OPS_PER_S,
-                                            bound_ms, cuda_ms)
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
     A4 = Alphabet("ACGT")
@@ -447,50 +491,20 @@ def genome_phase(dev, card, subst):
     # largest launch (by band cells) stands for the path in the JSON
     # line.  On the launch of the fewest antidiagonals both kernels are
     # held to their plain twins on the card, on that launch's inputs.
-    cells_of = lambda idxs: sum((gcut[k][5] - gcut[k][4] + 1)
-                                * (gcut[k][1] - gcut[k][0]) for k in idxs)
     held = min(range(len(glaunches)), key=lambda n: (
         glaunches[n][1] + glaunches[n][2], len(glaunches[n][0])))
     twin = None
     timed = []
     for n_launch, (gidx, gLS, gLT, gW) in enumerate(glaunches):
-        gx = pipeline.launch_inputs(gcut, gidx, gLS, gLT, gW, sg_arr,
-                                    tg_arr, True)
-        gon = {k: torch.from_numpy(v).to(dev) for k, v in gx.items()}
-        gargs = (gon["s_codes"], gon["t_codes"], gon["s_lens"],
-                 gon["t_lens"], gon["dmin"])
-        gkw = dict(W=gW, subst=subst, go=GO, ge=GE, flags=flags,
-                   w_eff=gon["w_eff"], with_dirs=True, device=dev)
-        gres = dp_ad.banded_dp_ad(*gargs, **gkw)
-        greal = torch.arange(len(gx["dmin"]), device=dev) < len(gidx)
-        gei = torch.where(greal, gres.end_i, -1)
-        gej = torch.where(greal, gres.end_j, -1)
-        gwalk = walk.traceback_walk(gres.dirs, gon["dminq"], gei, gej, W=gW,
-                                    device=dev)
+        twin_of = None
         if n_launch == held:
-            twin = hold_genome_launch(dev, card, gargs, gkw, gon, gres, gei,
-                                      gej, gwalk, gLS, gLT, gW, len(gidx))
-        dp_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*gargs, **gkw), 2)
-        walk_ms = cuda_ms(lambda: walk.traceback_walk(
-            gres.dirs, gon["dminq"], gei, gej, W=gW, device=dev), 2)
-        cells = cells_of(gidx)
-        dp_bound = bound_ms(nbytes(*gargs, gon["w_eff"], subst, *gres),
-                            DP_AD_OPS_PER_CELL * cells, FP32_OPS_PER_S)
-        tr32 = gwalk[0].to(torch.int32)
-        reads = int(sum((((tr32 >> sh) & 3) != 0).sum()
-                        for sh in (0, 2, 4, 6))) + int((gei >= 0).sum())
-        walk_bound = bound_ms(reads + nbytes(gon["dminq"], gei, gej, *gwalk),
-                              WALK_OPS_PER_STEP * reads, INT32_OPS_PER_S)
-        steps = gLS + gLT
-        print("genome launch (%s): %d pairs (%d real), LS %d, LT %d, W %d,"
-              " %d band cells; dp_ad %.3f ms (%.4f us an antidiagonal step,"
-              " %.2f GCUPS), bound %.4f ms (%s); walk %.3f ms (%d actions),"
-              " bound %.4f ms (%s)"
-              % (card, len(gx["dmin"]), len(gidx), gLS, gLT, gW, cells,
-                 dp_ms, dp_ms * 1e3 / steps, cells / dp_ms / 1e6,
-                 *dp_bound, walk_ms, reads, *walk_bound))
-        timed.append((cells, dp_ms, dp_bound, walk_ms, walk_bound))
-        del gres, gwalk, gon, gargs, gkw
+            twin_of = lambda *a: hold_launch("genome", card, *a)
+        got = time_launch(dev, card, "genome", gcut, gidx, gLS, gLT, gW,
+                          sg_arr, tg_arr, subst, flags, twin_of, reps=2)
+        if got["twin"] is not None:
+            twin = got["twin"]
+        timed.append((got["cells"], got["dp_ms"], got["dp_bound"],
+                      got["walk_ms"], got["walk_bound"]))
     print("genome plan: dp_ad %.3f ms and walk %.3f ms over its %d launches"
           " (CUDA events, each launch alone), extension %.3f s"
           % (sum(t[1] for t in timed), sum(t[3] for t in timed), len(timed),
@@ -511,13 +525,68 @@ def genome_phase(dev, card, subst):
                      "held_max_abs_err": twin["walk_err"]}}
 
 
-def hold_genome_launch(dev, card, gargs, gkw, gon, gres, gei, gej, gwalk,
-                       LS, LT, W, n_real):
-    """Phase 10's twin check: K1 and the walk on one launch of the genome
-    plan against their plain twins on the card, on the same tensors:
-    scores, end cells, the dirs plane on its live slots, trace bytes and
-    cursors, exactly.  Returns the twins' times and the launch's
-    shape."""
+def time_launch(dev, card, label, cut, idxs, LS, LT, W, s_arr, t_arr, subst,
+                flags, twin_of=None, reps=2, quiet=False):
+    """One launch of a plan, as ``extend_segments`` makes it: K1 and the
+    walk run on its inputs, are timed alone by CUDA events (``reps``
+    runs each after a warm-up) and set beside their bounds; ``twin_of``,
+    where given, holds them to their twins (:func:`hold_launch`'s
+    arguments after ``card``).  Returns the times, the bounds and the
+    twin check's result."""
+    import torch
+
+    from biseqt_tpu_torch import pipeline
+    from biseqt_tpu_torch.ops import dp_ad, walk
+    from biseqt_tpu_torch.profiling import (FP32_OPS_PER_S, INT32_OPS_PER_S,
+                                            bound_ms, cuda_ms)
+
+    gx = pipeline.launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr, True)
+    gon = {k: torch.from_numpy(v).to(dev) for k, v in gx.items()}
+    gargs = (gon["s_codes"], gon["t_codes"], gon["s_lens"], gon["t_lens"],
+             gon["dmin"])
+    gkw = dict(W=W, subst=subst, go=GO, ge=GE, flags=flags,
+               w_eff=gon["w_eff"], with_dirs=True, device=dev)
+    gres = dp_ad.banded_dp_ad(*gargs, **gkw)
+    greal = torch.arange(len(gx["dmin"]), device=dev) < len(idxs)
+    gei = torch.where(greal, gres.end_i, -1)
+    gej = torch.where(greal, gres.end_j, -1)
+    gwalk = walk.traceback_walk(gres.dirs, gon["dminq"], gei, gej, W=W,
+                                device=dev)
+    twin = None
+    if twin_of is not None:
+        twin = twin_of(gargs, gkw, gon, gres, gei, gej, gwalk, LS, LT, W,
+                       len(idxs))
+    dp_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*gargs, **gkw), reps)
+    walk_ms = cuda_ms(lambda: walk.traceback_walk(
+        gres.dirs, gon["dminq"], gei, gej, W=W, device=dev), reps)
+    cells = sum((cut[k][5] - cut[k][4] + 1) * (cut[k][1] - cut[k][0])
+                for k in idxs)
+    dp_bound = bound_ms(nbytes(*gargs, gon["w_eff"], subst, *gres),
+                        DP_AD_OPS_PER_CELL * cells, FP32_OPS_PER_S)
+    tr32 = gwalk[0].to(torch.int32)
+    reads = int(sum((((tr32 >> sh) & 3) != 0).sum()
+                    for sh in (0, 2, 4, 6))) + int((gei >= 0).sum())
+    walk_bound = bound_ms(reads + nbytes(gon["dminq"], gei, gej, *gwalk),
+                          WALK_OPS_PER_STEP * reads, INT32_OPS_PER_S)
+    steps = LS + LT
+    if not quiet:
+        print("%s launch (%s): %d pairs (%d real), LS %d, LT %d, W %d, %d"
+              " band cells; dp_ad %.3f ms (%.4f us an antidiagonal step,"
+              " %.2f GCUPS), bound %.4f ms (%s); walk %.3f ms (%d actions),"
+              " bound %.4f ms (%s)"
+              % (label, card, len(gx["dmin"]), len(idxs), LS, LT, W, cells,
+                 dp_ms, dp_ms * 1e3 / steps, cells / dp_ms / 1e6, *dp_bound,
+                 walk_ms, reads, *walk_bound))
+    return {"dp_ms": dp_ms, "dp_bound": dp_bound, "walk_ms": walk_ms,
+            "walk_bound": walk_bound, "cells": cells, "twin": twin}
+
+
+def hold_launch(label, card, gargs, gkw, gon, gres, gei, gej, gwalk, LS,
+                LT, W, n_real):
+    """K1 and the walk on one launch of a plan against their plain twins
+    on the card, on the same tensors: scores, end cells, the dirs plane
+    on its live slots, trace bytes and cursors, exactly.  Returns the
+    twins' times and the launch's shape."""
     import torch
 
     from biseqt_tpu_torch.ops import dp_ad, walk
@@ -531,36 +600,362 @@ def hold_genome_launch(dev, card, gargs, gkw, gon, gres, gei, gej, gwalk,
     if not (torch.equal(gres.score, want.score)
             and torch.equal(gres.end_i, want.end_i)
             and torch.equal(gres.end_j, want.end_j)):
-        fail("genome launch: DP kernel scores / end cells differ from the"
-             " plain twin (max |d score| %r)" % dp_err)
+        fail("%s launch: DP kernel scores / end cells differ from the"
+             " plain twin (max |d score| %r)" % (label, dp_err))
     low_live, high_live = dp_ad.live_nibbles(gon["dmin"], gon["w_eff"], W)
     gd, wd = gres.dirs, want.dirs
     bad = int((((gd ^ wd) & 15).ne(0) & low_live).sum()
               + (((gd ^ wd) >> 4).ne(0) & high_live).sum())
     if bad:
-        fail("genome launch: DP kernel dirs plane differs from the plain"
-             " twin on %d live nibbles" % bad)
+        fail("%s launch: DP kernel dirs plane differs from the plain"
+             " twin on %d live nibbles" % (label, bad))
     del want
     t0 = time.perf_counter()
     w_want = walk.traceback_walk_reference(gres.dirs, gon["dminq"], gei, gej,
-                                           W=W, device=dev)
+                                           W=W, device=gkw["device"])
     torch.cuda.synchronize()
     walk_plain_ms = (time.perf_counter() - t0) * 1e3
     if not all(torch.equal(a, b) for a, b in zip(gwalk, w_want)):
-        fail("genome launch: walk kernel trace / cursors differ from the"
-             " plain twin")
+        fail("%s launch: walk kernel trace / cursors differ from the"
+             " plain twin" % label)
     walk_err = float((gwalk[1] - w_want[1]).abs().max()
                      + (gwalk[2] - w_want[2]).abs().max())
     shape = "%d pairs (%d real), LS %d, LT %d, W %d" % (
         len(gon["dmin"]), n_real, LS, LT, W)
-    print("genome launch (%s): %s: dp_ad kernel == plain twin (scores, end"
+    print("%s launch (%s): %s: dp_ad kernel == plain twin (scores, end"
           " cells, dirs plane on its live slots; twin %.1f s), walk kernel =="
           " plain twin (trace bytes, cursors; twin %.1f s); %d"
           " antidiagonals, the twins replayed from CUDA graphs"
-          % (card, shape, dp_plain_ms / 1e3, walk_plain_ms / 1e3,
+          % (label, card, shape, dp_plain_ms / 1e3, walk_plain_ms / 1e3,
              gres.dirs.shape[0] * 2))
     return {"shape": shape, "dp_plain_ms": dp_plain_ms, "dp_err": dp_err,
             "walk_plain_ms": walk_plain_ms, "walk_err": walk_err}
+
+
+def phase_seconds(before, names):
+    """Seconds each ``profiling.Phase`` of ``names`` took since the
+    ``profiling.counters()`` snapshot ``before``."""
+    from biseqt_tpu_torch import profiling
+
+    after = profiling.counters()
+    return {name: after.get(name, {}).get("seconds", 0.0)
+            - before.get(name, {}).get("seconds", 0.0) for name in names}
+
+
+def mapping_phase(dev, card, subst):
+    """Phase 11: FASTA -> DB -> k-mer index -> reads mapped to a 5 Mbp
+    reference and extended with transcripts, each step held to the CPU
+    or to its twin.  Returns the kernels' launches and times on the
+    path."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import pipeline, profiling
+    from biseqt_tpu_torch.blot import WordBlotLocalRef
+    from biseqt_tpu_torch.database import DB, write_fasta
+    from biseqt_tpu_torch.kmers import KmerIndex, as_kmer_keys_np
+    from biseqt_tpu_torch.ops import dp_ad, walk
+    from biseqt_tpu_torch.ops.banded_dp import ModeFlags
+    from biseqt_tpu_torch.sequence import Alphabet, NamedSequence
+
+    m = MAPPING
+    A4 = Alphabet("ACGT")
+    flags = ModeFlags(local_start=True, local_end=True)
+    rng = np.random.default_rng(MAPPING_SEED)
+    t0 = time.perf_counter()
+    ref_codes = rng.integers(0, 4, m["ref"]).astype(np.int8)
+    loci = rng.integers(0, m["ref"] - m["read_len"], m["reads"])
+    reads = [channel(np, rng, ref_codes[r0:r0 + m["read_len"]], m["sub"],
+                     m["go"], m["ge"]) for r0 in loci]
+    print("mapping data: a %d bp reference, %d reads of %d bp through"
+          " substitutions %.2f, gap open %.2f, gap extend %.2f (%d letters;"
+          " %.1f s)" % (m["ref"], m["reads"], m["read_len"], m["sub"],
+                        m["go"], m["ge"], sum(map(len, reads)),
+                        time.perf_counter() - t0))
+    names = ("smoke.map.ingest", "smoke.map.index", "blot.ref_index",
+             "smoke.map.serial", "smoke.map.batch", "seeds.from_ref",
+             "blot.stats", "smoke.map.extend")
+    with tempfile.TemporaryDirectory() as td:
+        ref_fa = os.path.join(td, "ref.fa")
+        reads_fa = os.path.join(td, "reads.fa")
+        write_fasta(ref_fa, [NamedSequence(A4, ref_codes, name="chr1")])
+        write_fasta(reads_fa, [NamedSequence(A4, r, name="read%d" % k)
+                               for k, r in enumerate(reads)])
+
+        # -- ingest: the reference, then the reads with the index
+        # subscribed (the index holds the reads alone)
+        before = profiling.counters()
+        with profiling.Phase("smoke.map.ingest"):
+            db = DB(os.path.join(td, "map.db"), A4)
+            (ref_rec,) = db.load_fasta(ref_fa)
+            index = KmerIndex(m["index_wordlen"], A4,
+                              device=dev).attach_to(db)
+            read_recs = db.load_fasta(reads_fa)
+        R = db.load_from_record(ref_rec)
+        stored = [db.load_from_record(rec) for rec in read_recs]
+        if len(stored) != m["reads"] or not np.array_equal(
+                R.to_array(), ref_codes) or not all(
+                np.array_equal(x.to_array(), r)
+                for x, r in zip(stored, reads)):
+            fail("the DB did not give back the reference and the reads")
+
+        # -- the read index on the card, against the CPU and a scan
+        with profiling.Phase("smoke.map.index"):
+            index.refresh()
+            torch.cuda.synchronize()
+        on_cpu = KmerIndex(m["index_wordlen"], A4, device="cpu")
+        t0 = time.perf_counter()
+        on_cpu.index_kmers(stored)
+        index_cpu_s = time.perf_counter() - t0
+        if not all(torch.equal(g.cpu(), w)
+                   for g, w in zip(index.table(), on_cpu.table())):
+            fail("the read index on the card differs from the CPU's")
+        keys = [as_kmer_keys_np(r, m["index_wordlen"], 4) for r in reads]
+        flat = np.concatenate(keys)
+        sid = np.repeat(np.arange(len(keys)), [len(k) for k in keys])
+        pos = np.concatenate([np.arange(len(k)) for k in keys])
+        for km in (int(keys[0][0]), int(keys[7][len(keys[7]) // 2]),
+                   int(flat.max()),
+                   int(rng.integers(0, 4 ** m["index_wordlen"]))):
+            hit = np.flatnonzero(flat == km)
+            if index.hits(km) != list(zip(sid[hit].tolist(),
+                                          pos[hit].tolist())):
+                fail("the index's hits of k-mer %d differ from a numpy scan"
+                     % km)
+        if index.num_kmers != flat.size:
+            fail("the index holds %d k-mers, the reads %d"
+                 % (index.num_kmers, flat.size))
+
+        # -- fixed-reference discovery, serial and batched, against the CPU
+        queries = stored[:m["queries"]]
+        mapper = WordBlotLocalRef(R, device=dev, **MAPPER)
+        list(mapper.similar_segments(queries[0], **MAPPING_QUERY))
+        torch.cuda.synchronize()
+        mid = profiling.counters()
+        with profiling.Phase("smoke.map.serial"):
+            serial = [list(mapper.similar_segments(q, **MAPPING_QUERY))
+                      for q in queries]
+        serial_s = phase_seconds(mid, names)
+        mid = profiling.counters()
+        with profiling.Phase("smoke.map.batch"):
+            batch = mapper.similar_segments_batch(queries, **MAPPING_QUERY)
+        batch_s = phase_seconds(mid, names)
+        t0 = time.perf_counter()
+        on_cpu_map = WordBlotLocalRef(R, device="cpu", **MAPPER)
+        cpu_batch = on_cpu_map.similar_segments_batch(queries,
+                                                      **MAPPING_QUERY)
+        map_cpu_s = time.perf_counter() - t0
+        if not (np.array_equal(mapper._ref_keys, on_cpu_map._ref_keys)
+                and np.array_equal(mapper._ref_pos, on_cpu_map._ref_pos)):
+            fail("the reference's k-mer table on the card differs from the"
+                 " CPU's")
+        strip = lambda segs: [(sg["segment"], sg["num_seeds"])
+                              for sg in segs]
+        stats = lambda segs: np.asarray([(sg["p"], *sg["score"])
+                                         for sg in segs], np.float64)
+        stat_err = 0.0
+        for k, (ser, bat, cpu) in enumerate(zip(serial, batch, cpu_batch)):
+            if strip(bat) != strip(ser) or strip(bat) != strip(cpu):
+                fail("query %d: batch %s, serial %s, the CPU %s"
+                     % (k, strip(bat), strip(ser), strip(cpu)))
+            if bat:
+                stat_err = max(stat_err, float(np.abs(
+                    stats(bat) - stats(cpu)).max()), float(np.abs(
+                        stats(bat) - stats(ser)).max()))
+                if not (np.allclose(stats(bat), stats(cpu), **DISCOVERY_TOL)
+                        and np.allclose(stats(bat), stats(ser),
+                                        **DISCOVERY_TOL)):
+                    fail("query %d: p-hat / scores differ (max |d| %r)"
+                         % (k, stat_err))
+        tops = [max(segs, key=lambda sg: sg["num_seeds"]) if segs else None
+                for segs in batch]
+        hit = sum(top is not None and top["segment"][0][0] - LOCUS_RADIUS
+                  <= -int(r0) <= top["segment"][0][1] + LOCUS_RADIUS
+                  for top, r0 in zip(tops, loci))
+        recall = hit / len(queries)
+        if recall != 1.0:
+            fail("locus recall %r, not 1.0" % recall)
+
+        # -- each query's top segment extended with a transcript, counted
+        r_arr = R.to_array()
+        dp_ad.LAUNCHES = 0
+        walk.LAUNCHES = 0
+        with profiling.Phase("smoke.map.extend"):
+            mapped = [pipeline.extend_segments(
+                q, R, [top], subst=subst, go_score=GO, ge_score=GE,
+                with_transcripts=True, device=dev)
+                for q, top in zip(queries, tops)]
+            torch.cuda.synchronize()
+        map_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+        secs = phase_seconds(before, names)
+        plans = [pipeline.extension_plan([top], len(q), len(R), True)
+                 for q, top in zip(queries, tops)]
+        n_plan = sum(len(plan[3]) for plan in plans)
+        if any(c != n_plan for c in map_counts.values()):
+            fail("mapping: a kernel was not launched once per launch of the"
+                 " plans (%d): %s" % (n_plan, map_counts))
+        cells = ops = matches = 0
+        for q, rows in zip(queries, mapped):
+            q_arr = q.to_array()
+            for row in rows:
+                tx = row["transcript"]
+                got_score, letters_ok = rescore(
+                    np, tx, q_arr, r_arr, row["origin_start"],
+                    row["mutate_start"], subst)
+                if got_score != row["score"] or not letters_ok:
+                    fail("mapped read %s: transcript rescores to %r, score"
+                         " %r (letters ok: %s)" % (q.name, got_score,
+                                                   row["score"], letters_ok))
+                cells += row["band_cells"]
+                ops += len(tx)
+                matches += tx.count("M")
+        if ops < 0.8 * m["queries"] * m["read_len"]:
+            fail("mapped transcripts hold %d ops, under 80%% of the queries'"
+                 " letters" % ops)
+
+        # -- each launch of the plans timed alone; the first query's
+        # launch held to the twins
+        timed = []
+        twin = None
+        for k, (q, plan) in enumerate(zip(queries, plans)):
+            _, _, cut, launches = plan
+            for idxs, LS, LT, W in launches:
+                twin_of = None
+                if twin is None:
+                    twin_of = lambda *a: hold_launch("mapping", card, *a)
+                got = time_launch(dev, card, "mapping", cut, idxs, LS, LT, W,
+                                  q.to_array(), r_arr, subst, flags, twin_of,
+                                  reps=1, quiet=k > 0)
+                twin = twin or got["twin"]
+                timed.append(got)
+        db.close()
+    dp_ms = sum(t["dp_ms"] for t in timed)
+    walk_ms = sum(t["walk_ms"] for t in timed)
+    dp_bound = sum(t["dp_bound"][0] for t in timed)
+    walk_bound = sum(t["walk_bound"][0] for t in timed)
+    ingest_letters = m["ref"] + sum(map(len, reads))
+    print("mapping ingest (%s): %d records, %d letters in %.3f s (%.1f M"
+          " letters/s; FASTA through the C++ packer, SQLite rows, the pool's"
+          " .npy files)" % (card, 1 + m["reads"], ingest_letters,
+                            secs["smoke.map.ingest"],
+                            ingest_letters / secs["smoke.map.ingest"] / 1e6))
+    print("mapping index (%s): %d k-mers of %d reads (word length %d) in"
+          " %.4f s on the card (%.1f M k-mers/s), %.3f s on the CPU; == the"
+          " CPU's table (keys, sequence ids, positions), hits == a numpy"
+          " scan" % (card, index.num_kmers, m["reads"], m["index_wordlen"],
+                     secs["smoke.map.index"],
+                     index.num_kmers / secs["smoke.map.index"] / 1e6,
+                     index_cpu_s))
+    for name, got_s, whole in (("serial", serial_s, "smoke.map.serial"),
+                               ("batch", batch_s, "smoke.map.batch")):
+        wall = got_s[whole]
+        print("mapping discovery, %s (%s): %d queries in %.3f s (%.2f"
+              " queries/s); the statistics on the card %.3f s (%.1f%%, their"
+              " dispatch and copy included), the seeds served on the host"
+              " %.3f s (%.1f%%), the rest of the host work %.3f s (%.1f%%)"
+              % (name, card, len(queries), wall, len(queries) / wall,
+                 got_s["blot.stats"], 100 * got_s["blot.stats"] / wall,
+                 got_s["seeds.from_ref"],
+                 100 * got_s["seeds.from_ref"] / wall,
+                 wall - got_s["blot.stats"] - got_s["seeds.from_ref"],
+                 100 * (wall - got_s["blot.stats"] - got_s["seeds.from_ref"])
+                 / wall))
+    print("mapping discovery: the reference's table %.3f s on the card;"
+          " batch == serial, the card == the CPU (%d segments, seed counts"
+          " exactly; p-hat, S0, S1 max |d| %.3g; the CPU's batch %.1f s);"
+          " locus recall %.2f" % (secs["blot.ref_index"],
+                                  sum(map(len, batch)), stat_err, map_cpu_s,
+                                  recall))
+    print("mapping extension (%s): %d queries, %d rows, %d band cells, %d"
+          " transcript ops (match fraction %.4f), every transcript rescored;"
+          " launches %s = the plans' %d; %.3f s (%.3f GCUPS); over the %d"
+          " launches, each alone by CUDA events: dp_ad %.3f ms (bound %.4f"
+          " ms), walk %.3f ms (bound %.4f ms)"
+          % (card, len(queries), sum(map(len, mapped)), cells, ops,
+             matches / ops, map_counts, n_plan, secs["smoke.map.extend"],
+             cells / secs["smoke.map.extend"] / 1e9, len(timed), dp_ms,
+             dp_bound, walk_ms, walk_bound))
+    return {"launches": map_counts,
+            "dp_ad": {"plan_ms": dp_ms, "plan_bound_ms": dp_bound,
+                      "held_launch": twin["shape"],
+                      "held_plain_ms": twin["dp_plain_ms"],
+                      "held_max_abs_err": twin["dp_err"]},
+            "walk": {"plan_ms": walk_ms, "plan_bound_ms": walk_bound,
+                     "held_launch": twin["shape"],
+                     "held_plain_ms": twin["walk_plain_ms"],
+                     "held_max_abs_err": twin["walk_err"]}}
+
+
+def nway_phase(dev, card):
+    """Phase 12: ``WordBlotMultiple`` at the N-way homology config on the
+    card, held to the CPU, with block recall 1.0."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import profiling
+    from biseqt_tpu_torch.blot import WordBlotMultiple
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    n = NWAY
+    A4 = Alphabet("ACGT")
+    rng = np.random.default_rng(NWAY_SEED)
+    cores = [rng.integers(0, 4, n["block"]).astype(np.int8)
+             for _ in range(2)]
+    seqs, blocks = [], []
+    for k in range(n["n"]):
+        f1, f2, f3 = (rng.integers(0, 4, int(rng.integers(*n["flank"])))
+                      .astype(np.int8) for _ in range(3))
+        b1, b2 = (channel(np, rng, c, n["sub"], n["go"], n["ge"])
+                  for c in cores)
+        seqs.append(Sequence(A4, np.concatenate([f1, b1, f2, b2, f3])))
+        if k == 0:
+            blocks = [(len(f1), len(f1) + len(b1)),
+                      (len(f1) + len(b1) + len(f2),
+                       len(f1) + len(b1) + len(f2) + len(b2))]
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    with profiling.Phase("smoke.nway.seeds"):
+        on_card = WordBlotMultiple(*seqs, wordlen=12, device=dev)
+    with profiling.Phase("smoke.nway.discover"):
+        segs = list(on_card.similar_segments(**NWAY_QUERY))
+    secs = phase_seconds(before, ("smoke.nway.seeds", "smoke.nway.discover",
+                                  "blot.stats"))
+    t0 = time.perf_counter()
+    on_cpu = WordBlotMultiple(*seqs, wordlen=12, device="cpu")
+    cpu_segs = list(on_cpu.similar_segments(**NWAY_QUERY))
+    cpu_s = time.perf_counter() - t0
+    if on_card.seed_index.seeds() != on_cpu.seed_index.seeds():
+        fail("N-way seeds on the card differ from the CPU's")
+    strip = lambda ss: [(sg["segment"], sg["num_seeds"]) for sg in ss]
+    if strip(segs) != strip(cpu_segs):
+        fail("N-way segments on the card differ from the CPU's: %s against"
+             " %s" % (strip(segs), strip(cpu_segs)))
+    stats = lambda ss: np.asarray([(sg["p"], *sg["score"]) for sg in ss],
+                                  np.float64)
+    stat_err = float(np.abs(stats(segs) - stats(cpu_segs)).max(initial=0.0))
+    if not np.allclose(stats(segs), stats(cpu_segs), **DISCOVERY_TOL):
+        fail("N-way p-hat / scores differ from the CPU's (max |d| %r)"
+             % stat_err)
+    # multiple_homology.py's recall: a segment's pivot range (a / 2)
+    # overlaps each planted block
+    hits = [any(sg["segment"][1][0] // 2 < hi and sg["segment"][1][1] // 2
+                > lo for sg in segs) for lo, hi in blocks]
+    recall = sum(hits) / len(blocks)
+    if recall != 1.0:
+        fail("N-way block recall %r, not 1.0" % recall)
+    print("N-way homology (%s): %d sequences, %d bp, %d N-way seeds, %d"
+          " segments (p-hat %s); == the CPU (seeds, segments, seed counts"
+          " exactly; p-hat, S0, S1 max |d| %.3g; the CPU's %.2f s); block"
+          " recall %.1f; seed build %.3f s (the k-mer table and its sort on"
+          " the card, the expansion on the host), discovery %.3f s"
+          " (statistics on the card %.4f s)"
+          % (card, len(seqs), sum(map(len, seqs)), len(on_card.seed_index),
+             len(segs), [round(sg["p"], 3) for sg in segs], stat_err, cpu_s,
+             recall, secs["smoke.nway.seeds"], secs["smoke.nway.discover"],
+             secs["blot.stats"]))
 
 
 def main():
@@ -1127,6 +1522,12 @@ def main():
     # -- 10. discovery and extension at the genome-homology config ------
     genome = genome_phase(dev, card, subst)
 
+    # -- 11. reads mapped to a reference, from FASTA ---------------------
+    mapping = mapping_phase(dev, card, subst)
+
+    # -- 12. N-way homology ----------------------------------------------
+    nway_phase(dev, card)
+
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
@@ -1136,8 +1537,10 @@ def main():
          "bound_by": dp_bound_by, "library_ms": None,
          "launches_by_path": {"extend_segments": counts["dp_ad"],
                               "discover_and_extend":
-                                  genome["launches"]["dp_ad"]},
-         "discover_and_extend": genome["dp_ad"]},
+                                  genome["launches"]["dp_ad"],
+                              "map_reads": mapping["launches"]["dp_ad"]},
+         "discover_and_extend": genome["dp_ad"],
+         "map_reads": mapping["dp_ad"]},
         {"name": "walk", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/walk.cu",
          "replaces": "biseqt_tpu/ops/pallas_walk.py:512",
@@ -1146,8 +1549,10 @@ def main():
          "bound_by": walk_bound_by, "library_ms": None,
          "launches_by_path": {"extend_segments": counts["walk"],
                               "discover_and_extend":
-                                  genome["launches"]["walk"]},
-         "discover_and_extend": genome["walk"]},
+                                  genome["launches"]["walk"],
+                              "map_reads": mapping["launches"]["walk"]},
+         "discover_and_extend": genome["walk"],
+         "map_reads": mapping["walk"]},
         {"name": "dp_row", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_row.cu",
          "replaces": "biseqt_tpu/ops/pallas_dp.py:54",

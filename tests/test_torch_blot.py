@@ -8,6 +8,15 @@ assemblers (the dense grid, and the sparse run merging forced by
 planted homologies keep p̂ away from p_min.  Also held: the grid and its
 3x3 sums, the fallback's densest band on pairs with no segment (a
 seedless one among them), per-seed scores, and the overlap mode.
+
+The fixed-reference modes and ``WordBlotMultiple`` have one tier in the
+port (the reference's table or the N-way k-mer table sorted on the
+device); each is held to both of the JAX package's tiers (its host
+``argsort`` / dict tier and its device tier), with the same
+tolerances: the reference tables, each query's seed arrays, the
+segments of ``similar_segments`` and ``similar_segments_batch``
+(both assemblers), the overlap bands, the N-way segments and per-seed
+scores.
 """
 
 import numpy as np
@@ -198,3 +207,180 @@ def test_band_geometry_matches():
     assert np.array_equal(port.expected_overlap_len(100, 80, d, 0.1),
                           ref.expected_overlap_len(100, 80, d, 0.1))
     assert port.P_MIN_EPS == ref.P_MIN_EPS
+
+
+# ---------------------------------------------------------------------------
+# fixed-reference modes
+# ---------------------------------------------------------------------------
+
+def _ref_and_queries(seed, ref_len=3000, n=4):
+    """A random reference and queries: mutated copies of its loci with
+    random flanks, one unrelated, one shorter than the word."""
+    rng = np.random.default_rng(seed)
+    T = rand_seq(A4, ref_len, rng=rng)
+    M = MutationProcess(A4, subst_probs=0.08, go_prob=0.02, ge_prob=0.05,
+                        rng=rng)
+    queries = [rand_seq(A4, 400, rng=rng), rand_seq(A4, 5, rng=rng)]
+    for _ in range(n):
+        r0 = int(rng.integers(0, ref_len - 900))
+        queries.append(rand_seq(A4, int(rng.integers(0, 200)), rng=rng)
+                       + M.mutate(T[r0:r0 + 800])[0]
+                       + rand_seq(A4, 100, rng=rng))
+    return T, queries
+
+
+def _fixed_both_tiers(cls, T, **kw):
+    """The port's index and the JAX package's two tiers; the tables
+    must be equal."""
+    got = getattr(port, cls)(from_reference(T), device="cpu", **kw)
+    wants = [getattr(ref, cls)(T, device=tier, **kw)
+             for tier in (True, False)]
+    for want in wants:
+        assert np.array_equal(got._ref_keys, want._ref_keys)
+        assert np.array_equal(got._ref_pos, want._ref_pos)
+        assert got._ref_keys.dtype == got._ref_pos.dtype == np.int64
+    return got, wants
+
+
+@pytest.mark.parametrize("seed,kw,K_min,p_min", [
+    (40, dict(wordlen=8, g_max=0.2), 100, 0.5),
+    (41, dict(wordlen=10, g_max=0.25, sensitivity=0.95), 300, 0.6),
+])
+@pytest.mark.parametrize("assembler", ["dense", "sparse"])
+def test_local_ref_matches_both_tiers(monkeypatch, seed, kw, K_min, p_min,
+                                      assembler):
+    T, queries = _ref_and_queries(seed)
+    if assembler == "sparse":
+        for cls in (ref.WordBlot, port.WordBlot):
+            monkeypatch.setattr(cls, "MAX_GRID_CELLS", 1)
+    got, wants = _fixed_both_tiers("WordBlotLocalRef", T, **kw)
+    pq = [from_reference(q) for q in queries]
+    serial = [list(got.similar_segments(q, K_min=K_min, p_min=p_min))
+              for q in pq]
+    assert sum(1 for segs in serial if segs) >= 4
+    for want in wants:
+        for q, g, segs in zip(queries, pq, serial):
+            wb_ref = want._as_wordblot(ref.WordBlot, q)
+            wb = got._as_wordblot(port.WordBlot, g)
+            for a, b in zip(wb.seed_index.seed_arrays(),
+                            wb_ref.seed_index.seed_arrays()):
+                assert np.array_equal(a, b)
+            assert wb.seed_index._acap == wb_ref.seed_index._acap
+            _same_segments(segs, list(want.similar_segments(
+                q, K_min=K_min, p_min=p_min)))
+    batch = got.similar_segments_batch(pq, K_min=K_min, p_min=p_min)
+    want_batch = wants[0].similar_segments_batch(queries, K_min=K_min,
+                                                 p_min=p_min)
+    assert len(batch) == len(queries)
+    for b, s, w in zip(batch, serial, want_batch):
+        assert b == s                    # the batch equals the serial API
+        _same_segments(b, w)
+
+
+def test_local_ref_batch_of_seedless_queries():
+    T, _ = _ref_and_queries(42)
+    got, _ = _fixed_both_tiers("WordBlotLocalRef", T, wordlen=8)
+    q = from_reference(rand_seq(A4, 300, p=[1, 0, 0, 0], rng=1))
+    assert got.similar_segments_batch([q, q], K_min=100, p_min=0.5) == [[], []]
+
+
+def test_local_ref_matches_pairwise():
+    """Seeds served from the reference's table are the pairwise join's."""
+    T, queries = _ref_and_queries(43)
+    got, _ = _fixed_both_tiers("WordBlotLocalRef", T, wordlen=8)
+    q = from_reference(queries[-1])
+    pair = port.WordBlot(q, from_reference(T), wordlen=8, device="cpu")
+    for a, b in zip(got._as_wordblot(port.WordBlot, q).seed_index
+                    .seed_arrays(), pair.seed_index.seed_arrays()):
+        assert np.array_equal(a, b)
+    assert list(got.similar_segments(q, K_min=100, p_min=0.5)) == \
+        list(pair.similar_segments(K_min=100, p_min=0.5))
+
+
+@pytest.mark.parametrize("case", ["overlap", "unrelated"])
+def test_overlap_ref_matches_both_tiers(case):
+    if case == "overlap":
+        r1, r2 = _reads(44)
+    else:
+        rng = np.random.default_rng(45)
+        r1, r2 = rand_seq(A4, 800, rng=rng), rand_seq(A4, 800, rng=rng)
+    got, wants = _fixed_both_tiers("WordBlotOverlapRef", r2, wordlen=8,
+                                   g_max=0.2)
+    res = got.highest_scoring_overlap_band(from_reference(r1))
+    assert (res is None) == (case != "overlap")
+    for want in wants:
+        w = want.highest_scoring_overlap_band(r1)
+        assert (res is None) == (w is None)
+        if w is not None:
+            assert (res["d_band"], res["expected_len"]) == \
+                (w["d_band"], w["expected_len"])
+            _close([res["p"], *res["score"]], [w["p"], *w["score"]],
+                   "overlap band against the reference's table")
+
+
+# ---------------------------------------------------------------------------
+# N-way
+# ---------------------------------------------------------------------------
+
+def _nway(seed, n, core=300, sub=0.05, flank=100):
+    rng = np.random.default_rng(seed)
+    M = MutationProcess(A4, subst_probs=sub, go_prob=0.01, ge_prob=0.05,
+                        rng=rng)
+    c = rand_seq(A4, core, rng=rng)
+    return [rand_seq(A4, flank, rng=rng) + M.mutate(c)[0]
+            + rand_seq(A4, flank, rng=rng) for _ in range(n)]
+
+
+def _same_nway(got, want):
+    assert [(s["segment"], s["num_seeds"]) for s in got] == \
+        [(s["segment"], s["num_seeds"]) for s in want]
+    if want:
+        _close([(s["p"], *s["score"]) for s in got],
+               [(s["p"], *s["score"]) for s in want], "N-way p-hat, S0, S1")
+
+
+@pytest.mark.parametrize("seed,n,kw,K_min,p_min,min_score", [
+    (50, 3, dict(wordlen=8, g_max=0.15), 80, 0.5, 25.0),
+    (51, 4, dict(wordlen=6, g_max=0.2, max_hits_per_kmer=2), 100, 0.6, 25.0),
+    (52, 3, dict(wordlen=4, g_max=0.15), 50, 0.35, None),   # the soup
+])
+def test_wordblot_multiple_matches_both_tiers(seed, n, kw, K_min, p_min,
+                                              min_score):
+    seqs = _nway(seed, n) if seed != 52 else [
+        rand_seq(A4, 500, rng=seed + k) for k in range(n)]
+    got = port.WordBlotMultiple(*[from_reference(s) for s in seqs],
+                                device="cpu", **kw)
+    segs = list(got.similar_segments(K_min=K_min, p_min=p_min,
+                                     min_score=min_score))
+    assert segs
+    for tier in (True, False):
+        want = ref.WordBlotMultiple(*seqs, device=tier, **kw)
+        assert got.seed_index.seeds() == want.seed_index.seeds()
+        _same_nway(segs, list(want.similar_segments(
+            K_min=K_min, p_min=p_min, min_score=min_score)))
+        assert got.band_radius(K_min) == want.band_radius(K_min)
+        for n_seeds, seglen in ((0, 0), (30, 500), (10 ** 6, 10)):
+            assert got.estimate_match_probability(n_seeds, seglen) == \
+                want.estimate_match_probability(n_seeds, seglen)
+
+
+def test_wordblot_multiple_gate_and_score_seeds_match():
+    """The S0 gate rejects background soup the p-hat threshold passes,
+    as in the JAX package; per-seed scores are equal."""
+    soup = [rand_seq(A4, 500, rng=60 + k) for k in range(3)]
+    got = port.WordBlotMultiple(*[from_reference(s) for s in soup],
+                                wordlen=4, g_max=0.15, device="cpu")
+    assert list(got.similar_segments(K_min=50, p_min=0.35)) == []
+    seqs = _nway(61, 3, sub=0.03)
+    got = port.WordBlotMultiple(*[from_reference(s) for s in seqs],
+                                wordlen=6, g_max=0.15, device="cpu")
+    want = ref.WordBlotMultiple(*seqs, wordlen=6, g_max=0.15)
+    g, w = got.score_seeds(K=80), want.score_seeds(K=80)
+    assert g and [(s["seed"], s["neighs"]) for s in g] == \
+        [(s["seed"], s["neighs"]) for s in w]
+    assert [s["p"] for s in g] == [s["p"] for s in w]     # host float64
+    empty = port.WordBlotMultiple(
+        *[from_reference(rand_seq(A4, 40, p=p, rng=1))
+          for p in ([1, 0, 0, 0], [0, 1, 0, 0])], wordlen=4, device="cpu")
+    assert empty.score_seeds(K=20) == []
+    assert list(empty.similar_segments(K_min=20, p_min=0.5)) == []

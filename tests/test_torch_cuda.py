@@ -616,3 +616,103 @@ def test_discover_and_extend_on_the_card(rng, card):
                     .similar_segments(K_min=1500, p_min=0.6))
     want = extend_segments(S, T, segments, device="cpu")
     assert sorted(s["score"] for s in got) == sorted(s["score"] for s in want)
+
+
+def _mutated(rng, seq, n):
+    """``n`` letters of ``seq`` from a random locus through the port's
+    mutation process (10% errors), and the locus."""
+    from biseqt_tpu_torch.stochastics import MutationProcess
+
+    r0 = int(rng.integers(0, len(seq) - n))
+    M = MutationProcess(seq.alphabet, subst_probs=0.06, go_prob=0.02,
+                        ge_prob=0.05, rng=rng)
+    return M.mutate(seq[r0:r0 + n])[0], r0
+
+
+def test_local_ref_card_matches_cpu(rng, card):
+    """Reads mapped against a 200 kbp reference: the reference's table,
+    the batch (equal to the serial API) and its segments on the card
+    equal the CPU's; p-hat and (S0, S1) within rtol 1e-5, atol 1e-6."""
+    A4 = Alphabet("ACGT")
+    ref = Sequence(A4, rng.integers(0, 4, 200_000))
+    queries, loci = zip(*[_mutated(rng, ref, 5000) for _ in range(10)])
+    kw = dict(wordlen=12, g_max=0.25)
+    on_card = blot.WordBlotLocalRef(ref, device=card, **kw)
+    on_cpu = blot.WordBlotLocalRef(ref, device="cpu", **kw)
+    assert np.array_equal(on_card._ref_keys, on_cpu._ref_keys)
+    assert np.array_equal(on_card._ref_pos, on_cpu._ref_pos)
+    got = on_card.similar_segments_batch(queries, K_min=1000, p_min=0.5)
+    want = on_cpu.similar_segments_batch(queries, K_min=1000, p_min=0.5)
+    assert got == [list(on_card.similar_segments(q, K_min=1000, p_min=0.5))
+                   for q in queries]
+    for g, w, r0 in zip(got, want, loci):
+        assert [(s["segment"], s["num_seeds"]) for s in g] == \
+            [(s["segment"], s["num_seeds"]) for s in w]
+        if w:
+            np.testing.assert_allclose([(s["p"], *s["score"]) for s in g],
+                                       [(s["p"], *s["score"]) for s in w],
+                                       rtol=1e-5, atol=1e-6)
+        top = max(g, key=lambda s: s["num_seeds"])
+        assert top["segment"][0][0] - 200 <= -r0 <= top["segment"][0][1] + 200
+
+
+def test_kmer_index_card_matches_cpu(rng, card):
+    """The sorted (key, seq, pos) table, an append, hits, the k-mer
+    scores and what masking drops, on the card and on the CPU."""
+    from biseqt_tpu_torch.kmers import KmerIndex
+
+    A4 = Alphabet("ACGT")
+    reads = [Sequence(A4, rng.integers(0, 4, int(n)))
+             for n in rng.integers(1500, 2500, 60)]
+    reads.append(Sequence(A4, [0, 1, 2, 3] * 400))      # a repeat to mask
+    on_card = KmerIndex(8, A4, device=card).index_kmers(reads[:40])
+    on_cpu = KmerIndex(8, A4, device="cpu").index_kmers(reads[:40])
+    on_card.index_kmers(reads[40:], append=True)
+    on_cpu.index_kmers(reads[40:], append=True)
+    for g, w in zip(on_card.table(), on_cpu.table()):
+        assert g.device == card and torch.equal(g.cpu(), w)
+    for km in on_cpu.kmers()[::997]:
+        assert on_card.hits(km) == on_cpu.hits(km)
+    (gu, gs), (wu, ws) = on_card.score_kmers(), on_cpu.score_kmers()
+    assert np.array_equal(gu, wu)
+    np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-6)
+    assert on_card.mask_repetitive(30.0) == on_cpu.mask_repetitive(30.0) > 0
+    for g, w in zip(on_card.table(), on_cpu.table()):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_wordblot_multiple_card_matches_cpu(rng, card):
+    """Four 30 kbp sequences sharing two planted blocks: the N-way seeds,
+    the segments and their seed counts on the card equal the CPU's,
+    p-hat and (S0, S1) within rtol 1e-5, atol 1e-6, and both blocks
+    are found."""
+    from biseqt_tpu_torch.stochastics import MutationProcess
+
+    A4 = Alphabet("ACGT")
+    M = MutationProcess(A4, subst_probs=0.03, go_prob=0.005, ge_prob=0.02,
+                        rng=rng)
+    cores = [Sequence(A4, rng.integers(0, 4, 6000)) for _ in range(2)]
+    flank = lambda: Sequence(A4, rng.integers(0, 4, int(rng.integers(
+        5000, 7000))))
+    seqs, blocks = [], []
+    for n in range(4):
+        f1, b1, f2, b2, f3 = (flank(), M.mutate(cores[0])[0], flank(),
+                              M.mutate(cores[1])[0], flank())
+        seqs.append(f1 + b1 + f2 + b2 + f3)
+        if n == 0:
+            blocks = [(len(f1), len(f1) + len(b1)),
+                      (len(f1 + b1 + f2), len(f1 + b1 + f2 + b2))]
+    kw = dict(wordlen=12)
+    on_card = blot.WordBlotMultiple(*seqs, device=card, **kw)
+    on_cpu = blot.WordBlotMultiple(*seqs, device="cpu", **kw)
+    assert on_card.seed_index.seeds() == on_cpu.seed_index.seeds()
+    got = list(on_card.similar_segments(K_min=2000, p_min=0.75))
+    want = list(on_cpu.similar_segments(K_min=2000, p_min=0.75))
+    assert [(s["segment"], s["num_seeds"]) for s in got] == \
+        [(s["segment"], s["num_seeds"]) for s in want]
+    np.testing.assert_allclose([(s["p"], *s["score"]) for s in got],
+                               [(s["p"], *s["score"]) for s in want],
+                               rtol=1e-5, atol=1e-6)
+    for lo, hi in blocks:
+        assert any(s["segment"][1][0] // 2 < hi and
+                   s["segment"][1][1] // 2 > lo for s in got)

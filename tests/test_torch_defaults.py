@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import blot, native, pipeline, pw, seeds, stochastics
+from biseqt_tpu_torch import (blot, kmers, native, pipeline, pw, seeds,
+                              stochastics)
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.ops import (banded_dp, blot_stats, dp_ad, dp_row,
                                   tables, walk)
@@ -76,6 +77,22 @@ def _pair_seqs():
     return S, S[40:260]
 
 
+def _local_ref(**kw):
+    S, T = _pair_seqs()
+    return list(blot.WordBlotLocalRef(S, **kw).similar_segments_batch(
+        [T], K_min=50, p_min=0.5))
+
+
+def _overlap_ref(**kw):
+    S, T = _pair_seqs()
+    return blot.WordBlotOverlapRef(S, **kw).highest_scoring_overlap_band(T)
+
+
+def _nway_seqs():
+    S, T = _pair_seqs()
+    return S, T, S[100:280]
+
+
 def _discover(**kw):
     return pipeline.discover_and_extend(*_pair_seqs(), K_min=50, p_min=0.5,
                                         **kw)
@@ -126,6 +143,16 @@ ENTRY_POINTS = {
             *_pair_seqs(), **kw).highest_scoring_overlap_band()),
     "SeedIndex": (seeds.SeedIndex, lambda **kw: seeds.SeedIndex(
         *_pair_seqs(), 8, **kw)),
+    "KmerIndex": (kmers.KmerIndex, lambda **kw: kmers.KmerIndex(
+        8, Alphabet("ACGT"), **kw).index_kmers(_pair_seqs()).score_kmers()),
+    "WordBlotLocalRef": (blot.WordBlotLocalRef, _local_ref),
+    "WordBlotOverlapRef": (blot.WordBlotOverlapRef, _overlap_ref),
+    "SeedIndexMultiple": (seeds.SeedIndexMultiple,
+                          lambda **kw: seeds.SeedIndexMultiple(
+                              *_nway_seqs(), **kw)),
+    "WordBlotMultiple": (blot.WordBlotMultiple, lambda **kw: list(
+        blot.WordBlotMultiple(*_nway_seqs(), **kw).similar_segments(
+            K_min=50, p_min=0.5))),
     "Aligner": (pw.Aligner, _aligner),
     "banded_dp_ad": (dp_ad.banded_dp_ad, lambda **kw: dp_ad.banded_dp_ad(
         *_pairs(), [-8, -8], W=128, **_dp_kw(), **kw)),
@@ -238,4 +265,6 @@ def test_port_names_no_path_of_the_jax_package():
             found += ["%s:%d %r" % (os.path.relpath(path, REPO), node.lineno,
                                     n) for n in names if _names_jax_package(n)]
     assert not found, found
-    assert sum(1 for _ in _port_modules()) >= 19
+    walked = {os.path.relpath(path, PORT) for path in _port_modules()}
+    assert {"utils.py", "kmers.py", "database.py", "blot.py",
+            "seeds.py"} <= walked and len(walked) >= 25

@@ -3,16 +3,21 @@ package's, on the same sequences, on the CPU.
 
 The sorted (d_, a) arrays are held exactly, every band query on random
 bands exactly, and a snapshot written by either package loads in the
-other and answers the same.
+other and answers the same.  ``SeedIndexMultiple`` (one tier, its
+k-mer table sorted on the device) is held to both of the JAX package's
+tiers, the host dict tier and the device tier, exactly: the seed
+tuples, their order, and the tuple budget's caps.
 """
 
 import numpy as np
 import pytest
 
+from biseqt_tpu import seeds as ref_seeds
 from biseqt_tpu.seeds import SeedIndex as RefSeedIndex
-from biseqt_tpu.sequence import Alphabet
+from biseqt_tpu.sequence import Alphabet, Sequence
 from biseqt_tpu.stochastics import MutationProcess, rand_seq
-from biseqt_tpu_torch.seeds import Seed, SeedIndex
+from biseqt_tpu_torch import seeds as port_seeds
+from biseqt_tpu_torch.seeds import Seed, SeedIndex, SeedIndexMultiple
 from biseqt_tpu_torch.sequence import from_reference
 
 A4 = Alphabet("ACGT")
@@ -100,3 +105,87 @@ def test_seed_tuple():
     s = Seed(3, 5)
     assert (s.i, s.j) == (3, 5) and s == (3, 5)
     assert repr(s) == "Seed(i=3, j=5)"
+
+
+def _multiple_seqs(seed, n, twice=True, sub=0.05):
+    """``n`` sequences sharing a mutated core, planted twice per sequence
+    when ``twice`` (so shared k-mers repeat and cross products fan
+    out)."""
+    rng = np.random.default_rng(seed)
+    M = MutationProcess(A4, subst_probs=sub, go_prob=0.02, ge_prob=0.05,
+                        rng=rng)
+    core = rand_seq(A4, 400, rng=rng)
+    out = []
+    for _ in range(n):
+        s = rand_seq(A4, 100, rng=rng) + M.mutate(core)[0] \
+            + rand_seq(A4, 150, rng=rng)
+        if twice:
+            s = s + M.mutate(core)[0] + rand_seq(A4, 80, rng=rng)
+        out.append(s)
+    return out
+
+
+def _multiple_both_tiers(seqs, **kw):
+    got = SeedIndexMultiple(*[from_reference(s) for s in seqs],
+                            device="cpu", **kw)
+    for tier in (True, False):
+        want = ref_seeds.SeedIndexMultiple(*seqs, device=tier, **kw)
+        assert got.seeds() == want.seeds(), tier
+        assert len(got) == got.seed_count() == len(want)
+    return got
+
+
+@pytest.mark.parametrize("h", [1, 2, 4])
+def test_seed_index_multiple_matches_both_tiers(h):
+    got = _multiple_both_tiers(_multiple_seqs(30, 4), wordlen=8,
+                               max_hits_per_kmer=h)
+    assert len(got) > 30
+    assert all(isinstance(x, int) for x in got.seeds()[0])
+    assert got.seeds() == sorted(got.seeds())
+
+
+@pytest.mark.parametrize("seed,n,wordlen", [(31, 2, 6), (32, 3, 5),
+                                            (33, 6, 10)])
+def test_seed_index_multiple_shapes_match_both_tiers(seed, n, wordlen):
+    """Two sequences, short words (many repeats), and more sequences
+    than the word shares (few or no N-way seeds)."""
+    _multiple_both_tiers(_multiple_seqs(seed, n, twice=n < 6, sub=0.1),
+                         wordlen=wordlen)
+
+
+def test_seed_index_multiple_tuple_budget_matches_both_tiers():
+    """A poly-A run saturating the cap in all six sequences would expand
+    to 8^6 tuples; the budget caps it identically on every tier."""
+    rng = np.random.default_rng(34)
+    polyA = Sequence(A4, [0] * 60)
+    seqs = [rand_seq(A4, 120, rng=rng) + polyA + rand_seq(A4, 120, rng=rng)
+            for _ in range(6)]
+    got = _multiple_both_tiers(seqs, wordlen=8, max_hits_per_kmer=8,
+                               max_tuples_per_kmer=500)
+    assert 0 < len(got) < 5000
+    big = SeedIndexMultiple(*[from_reference(s) for s in seqs], wordlen=8,
+                            max_hits_per_kmer=8, max_tuples_per_kmer=1 << 30,
+                            device="cpu")
+    assert len(big) > 200_000
+
+
+def test_seed_index_multiple_without_shared_kmers():
+    rng = np.random.default_rng(35)
+    seqs = [rand_seq(A4, 50, p=[1, 0, 0, 0], rng=rng),
+            rand_seq(A4, 60, p=[0, 1, 0, 0], rng=rng),
+            rand_seq(A4, 5, rng=rng)]
+    assert _multiple_both_tiers(seqs, wordlen=4).seeds() == []
+    with pytest.raises(ValueError, match="max_hits_per_kmer"):
+        SeedIndexMultiple(*[from_reference(s) for s in seqs],
+                          max_hits_per_kmer=0, device="cpu")
+
+
+def test_fit_tuple_budget_matches():
+    rng = np.random.default_rng(36)
+    for N, h, budget in ((3, 8, 100), (10, 8, 4096), (22, 8, 1 << 20),
+                         (4, 1, 1)):
+        c = rng.integers(1, h + 1, (50, N))
+        got = port_seeds._fit_tuple_budget(c, h, budget)
+        assert np.array_equal(got, ref_seeds._fit_tuple_budget(c, h, budget))
+        assert got.dtype == np.int64
+        assert (got.astype(np.float64).prod(axis=1) <= budget).all()
