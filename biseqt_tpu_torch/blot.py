@@ -42,7 +42,7 @@ from .kmers import as_kmer_keys_np
 from .ops import blot_stats, tables
 from .ops.banded_dp import resolve_device
 from .profiling import Phase
-from .seeds import SeedIndex, SeedIndexMultiple
+from .seeds import SeedIndex, SeedIndexMultiple, kmer_table_np
 from .sequence import Sequence
 
 __all__ = [
@@ -489,7 +489,17 @@ class _FixedRefBase:
     query's seeds up as a :class:`WordBlot`-family object.  A query's
     seeds are served on the host (packing, binary searches and a ragged
     expansion, O(|query| + hits)); only its candidates' statistics run
-    on ``device``."""
+    on ``device``.
+
+    Words too wide for ``ops.tables``' int32 keys (|Σ|^wordlen >= 2^31)
+    are answered for references shorter than :attr:`WIDE_MAX_REF`
+    letters, as in the JAX package, whose host tier serves them: the
+    table is keyed by :func:`.kmers.as_kmer_keys_np`'s int64 keys and
+    sorted on ``device`` the same way.  A longer reference at such a word
+    raises ``ops.tables``' ``ValueError``, as the JAX package's device
+    tier does."""
+
+    WIDE_MAX_REF = 1 << 16
 
     def __init__(self, ref: Sequence, wordlen: int = 8, g_max: float = 0.3,
                  sensitivity: float = 0.99, device="cuda"):
@@ -498,14 +508,21 @@ class _FixedRefBase:
         self.wordlen = int(wordlen)
         self.g_max = float(g_max)
         self.sensitivity = float(sensitivity)
+        A = len(ref.alphabet)
         with Phase("blot.ref_index"):
-            keys, _, poss, n_valid = tables.build_kmer_table(
-                ref.to_array()[None, :], [len(ref)], self.wordlen,
-                len(ref.alphabet), device=self.device)
-            n = int(n_valid)
-            # one copy of the (key, pos) columns to the host
-            kp = torch.stack([keys[:n], poss[:n]]).to(torch.int64)
-            self._ref_keys, self._ref_pos = kp.cpu().numpy()
+            if A ** self.wordlen >= 2 ** 31 and len(ref) < self.WIDE_MAX_REF:
+                self._ref_keys, _, pos = kmer_table_np(
+                    [as_kmer_keys_np(ref.to_array(np.int64), self.wordlen,
+                                     A)], self.device)
+                self._ref_pos = pos.astype(np.int64)
+            else:
+                keys, _, poss, n_valid = tables.build_kmer_table(
+                    ref.to_array()[None, :], [len(ref)], self.wordlen, A,
+                    device=self.device)
+                n = int(n_valid)
+                # one copy of the (key, pos) columns to the host
+                kp = torch.stack([keys[:n], poss[:n]]).to(torch.int64)
+                self._ref_keys, self._ref_pos = kp.cpu().numpy()
 
     def _as_wordblot(self, cls, query: Sequence):
         wb = cls.__new__(cls)

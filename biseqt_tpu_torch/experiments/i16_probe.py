@@ -6,8 +6,10 @@ vector ops one by one in a TPU kernel (``kernel``, launched by
 blocks of a 16-bit DP.  On Hopper the question is what the packed
 16-bit path gives, so the kernel of ``csrc/i16_probe.cu`` does each op
 the way a 16-bit DP would: two int16 per 32-bit register with the
-SIMD-in-word intrinsics, one warp per 128-lane row, lane rolls and
-shifted slices as warp shuffles plus ``__byte_perm``.
+SIMD-in-word intrinsics, 16-byte accesses (16 threads a 128-lane row),
+lane rolls and shifted slices as width-16 warp shuffles plus
+``__byte_perm``, two chunks in flight a thread, one instance per op, and
+as many blocks as the array needs.
 
 :func:`i16_op` applies one op, by the probe's name (:data:`OPS`), to an
 int16 ``[R, 128]`` array, with the probe's semantics: int16 wrap-around
@@ -100,8 +102,8 @@ def _i16_cuda(op: int, x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     from .. import _build
 
-    if x.data_ptr() % 8:
-        x = x.clone()             # the kernel moves 8-byte words
+    if x.data_ptr() % 16:
+        x = x.clone()             # the kernel moves 16-byte chunks
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out

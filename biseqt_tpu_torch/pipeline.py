@@ -196,11 +196,54 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
                 t_lens=t_lens, dmin=dmin, w_eff=w_eff, dminq=dminq)
 
 
+def _engine_device(use_pallas, device):
+    """``device`` resolved, held to ``use_pallas``, the JAX package's
+    engine choice: ``True`` asks for the kernels (a CUDA ``device``),
+    ``False`` for the plain twins (the CPU), ``None`` leaves it to
+    ``device``; a value that contradicts ``device`` raises
+    ``ValueError``."""
+    device = resolve_device(device)
+    if use_pallas is not None and bool(use_pallas) != (
+            device.type == "cuda"):
+        raise ValueError(
+            "use_pallas=%r contradicts device=%s: the kernels run on a"
+            " CUDA device and their plain twins on the CPU"
+            % (use_pallas, device))
+    return device
+
+
+def _walk_on_device(res, x, n, W, flags, device):
+    """Transcripts of a launch's first ``n`` pairs by the walk kernel on
+    the device over K1's result ``res``, compacted by the C++ tier."""
+    # padding pairs are skipped by the walk (-1 end cells)
+    real = torch.arange(len(x["dmin"]), device=device) < n
+    ei = torch.where(real, res.end_i, -1)
+    ej = torch.where(real, res.end_j, -1)
+    dminq = torch.from_numpy(x["dminq"]).to(device)
+    trace, fi, fj = traceback_walk(res.dirs, dminq, ei, ej, W=W,
+                                   device=device)
+    # every walk must move from its end cell to its start cell by its
+    # trace's ops: checked on the device, copied with the cursors in one
+    # transfer
+    di, dj = trace_moves(trace, len(ei))
+    bad = ((ei - fi) != di) | ((ej - fj) != dj)
+    fi, fj, di, dj, bad = torch.stack(
+        [fi, fj, di, dj, bad.to(torch.int32)]).cpu().numpy()
+    if bad.any():
+        raise RuntimeError(
+            "the walk's trace does not lead from the end cells to its"
+            " final cursors for pairs %s" % np.nonzero(bad)[0][:8].tolist())
+    return native.compact_sweep_ops_t(
+        trace.cpu().numpy(), fi, fj, x["s_codes"][:n], x["t_codes"][:n],
+        x["s_lens"][:n], x["t_lens"][:n], flags, moves=(di[:n], dj[:n]))
+
+
 def extend_segments(S, T, segments: List[Dict], *, subst=None,
-                    go_score=-3.0, ge_score=-1.0,
+                    go_score=-3.0, ge_score=-1.0, use_pallas: bool = None,
                     pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
-                    with_transcripts: bool = False, device="cuda",
-                    _dirs_budget: int = DIRS_BUDGET, _r_chunk: int = 128):
+                    with_transcripts: bool = False, device_walk: bool = True,
+                    device="cuda", _dirs_budget: int = DIRS_BUDGET,
+                    _r_chunk: int = 128):
     """Batched banded extension of candidate segments.
 
     ``S`` / ``T``: sequences (anything with ``to_array()`` and ``len``);
@@ -218,9 +261,13 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
 
     ``device="cuda"`` (the default) runs the hand-written kernels and
     raises without a card; ``device="cpu"`` runs their plain PyTorch
-    twins.
+    twins.  ``use_pallas`` names the same choice, as in
+    :func:`discover_and_extend`.  With ``device_walk=False`` the
+    direction plane is copied to the host and walked there by the C++
+    tier (:func:`.native.traceback_batch_ad`), the JAX package's host
+    route; its transcripts and start cells equal the device walk's.
     """
-    device = resolve_device(device)
+    device = _engine_device(use_pallas, device)
     if not segments:
         return []
     A = len(S.alphabet)
@@ -269,29 +316,17 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                 scores[idxs] = res.score[:n].cpu().numpy()
                 if not with_transcripts:
                     continue
-                # padding pairs are skipped by the walk (-1 end cells)
-                real = torch.arange(len(x["dmin"]), device=device) < n
-                ei = torch.where(real, res.end_i, -1)
-                ej = torch.where(real, res.end_j, -1)
-                trace, fi, fj = traceback_walk(res.dirs, put(x["dminq"]),
-                                               ei, ej, W=W, device=device)
+                if device_walk:
+                    g_ops, g_si, g_sj = _walk_on_device(
+                        res, x, n, W, flags, device)
+                else:
+                    ends = torch.stack([res.end_i[:n], res.end_j[:n]])
+                    ei, ej = ends.cpu().numpy()
+                    g_ops, g_si, g_sj = native.traceback_batch_ad(
+                        res.dirs.cpu().numpy(), x["dminq"][:n],
+                        x["s_codes"][:n], x["t_codes"][:n],
+                        x["s_lens"][:n], x["t_lens"][:n], ei, ej, flags)
                 del res
-                # every walk must move from its end cell to its start
-                # cell by its trace's ops: checked on the device, copied
-                # with the cursors in one transfer
-                di, dj = trace_moves(trace, len(ei))
-                bad = ((ei - fi) != di) | ((ej - fj) != dj)
-                fi, fj, di, dj, bad = torch.stack(
-                    [fi, fj, di, dj, bad.to(torch.int32)]).cpu().numpy()
-                if bad.any():
-                    raise RuntimeError(
-                        "the walk's trace does not lead from the end cells"
-                        " to its final cursors for pairs %s"
-                        % np.nonzero(bad)[0][:8].tolist())
-                g_ops, g_si, g_sj = native.compact_sweep_ops_t(
-                    trace.cpu().numpy(), fi, fj, x["s_codes"][:n],
-                    x["t_codes"][:n], x["s_lens"][:n], x["t_lens"][:n],
-                    flags, moves=(di[:n], dj[:n]))
             for b, idx in enumerate(idxs):
                 ops[idx] = g_ops[b]
                 si_all[idx] = g_si[b]
@@ -332,13 +367,7 @@ def discover_and_extend(S, T, *, wordlen: int = 8, K_min: int = 100,
     twins (the CPU), ``None`` leaves it to ``device``; a value that
     contradicts ``device`` raises ``ValueError``.
     """
-    device = resolve_device(device)
-    if use_pallas is not None and bool(use_pallas) != (
-            device.type == "cuda"):
-        raise ValueError(
-            "use_pallas=%r contradicts device=%s: the kernels run on a"
-            " CUDA device and their plain twins on the CPU"
-            % (use_pallas, device))
+    device = _engine_device(use_pallas, device)
     wb = WordBlot(S, T, wordlen=wordlen, g_max=g_max, device=device)
     segments = list(wb.similar_segments(K_min=K_min, p_min=p_min))
     extended = extend_segments(

@@ -29,6 +29,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .kmers import as_kmer_keys_np, as_kmer_seq
 from .ops import tables
 from .ops.banded_dp import resolve_device
 from .profiling import Phase
@@ -203,7 +204,17 @@ class SeedIndexMultiple:
     is sorted on ``device`` (``"cuda"`` by default; it raises where no
     card is present); the expansion runs on the host.  Seeds are sorted
     tuples, equal to both tiers of the JAX package.
+
+    Words too wide for ``ops.tables``' int32 keys (|Σ|^wordlen >= 2^31)
+    are answered for inputs of at most :attr:`WIDE_MAX_LETTERS` letters
+    in all, as in the JAX package, whose host tier serves them: the
+    table is keyed by :func:`.kmers.as_kmer_keys_np`'s int64 keys (past
+    2^63, the exact keys' ranks) and sorted on ``device`` the same way.
+    A larger input at such a word raises ``ops.tables``' ``ValueError``,
+    as the JAX package's device tier does.
     """
+
+    WIDE_MAX_LETTERS = 200_000
 
     def __init__(self, *seqs: Sequence, wordlen: int = 8,
                  max_hits_per_kmer: int = 8, device="cuda",
@@ -222,18 +233,32 @@ class SeedIndexMultiple:
         self._max_tuples = max(int(max_tuples_per_kmer), 1)
         self._build(h)
 
-    def _build(self, h: int):
+    def _table(self):
+        """The (key, seq, pos)-sorted k-mer table of every sequence, real
+        windows only, as int64 keys and int32 sequence ids and positions
+        (numpy)."""
+        A = len(self.alphabet)
+        if (A ** self.wordlen >= 2 ** 31 and sum(map(len, self.seqs))
+                <= self.WIDE_MAX_LETTERS):
+            if A ** self.wordlen < 2 ** 63:
+                keys = [as_kmer_keys_np(s.to_array(np.int64), self.wordlen, A)
+                        for s in self.seqs]
+            else:
+                keys = [np.array(as_kmer_seq(s, self.wordlen), dtype=object)
+                        for s in self.seqs]
+            return kmer_table_np(keys, self.device)
         codes, lengths = pack_sequences(list(self.seqs))
         kk, ss, pp = (x.cpu().numpy() for x in tables.nway_shared_seeds(
-            codes, lengths, self.wordlen, len(self.alphabet),
-            device=self.device))
+            codes, lengths, self.wordlen, A, device=self.device))
         valid = kk != tables.KEY_SENTINEL
-        kk, ss, pp = kk[valid], ss[valid], pp[valid]
+        return kk[valid].astype(np.int64), ss[valid], pp[valid]
+
+    def _build(self, h: int):
+        kk, ss, pp = self._table()
         N = len(self.seqs)
         self._seeds = []
         if kk.size == 0:
             return
-        kk = kk.astype(np.int64)
         # cap every (key, seq) subgroup at its first h rows (the table is
         # (key, seq, pos)-sorted, so subgroup order is position order)
         idx = np.arange(kk.shape[0])
@@ -294,6 +319,29 @@ class SeedIndexMultiple:
 
     def seed_count(self):
         return len(self._seeds)
+
+
+def kmer_table_np(keys, device):
+    """The k-mer table of sequences whose window keys are ``keys`` (one
+    array a sequence, -1 for a window that holds no word), sorted by
+    (key, seq, pos) on ``device``: int64 keys and int32 sequence ids and
+    positions, numpy, real windows only.  Keys past int64 (object arrays
+    of Python ints) are replaced by their ranks, equal where the keys
+    are."""
+    ss = np.repeat(np.arange(len(keys), dtype=np.int32),
+                   [k.shape[0] for k in keys])
+    pp = np.concatenate([np.arange(k.shape[0], dtype=np.int32)
+                         for k in keys])
+    kk = np.concatenate(keys)
+    if kk.dtype == object:
+        kk = np.unique(kk, return_inverse=True)[1].astype(np.int64)
+    real = kk >= 0
+    kk, ss, pp = kk[real], ss[real], pp[real]
+    # (seq, pos) is the flat order, so a stable sort by key gives the
+    # (key, seq, pos) order
+    kk, order = torch.sort(torch.from_numpy(kk).to(device), stable=True)
+    order = order.cpu().numpy()
+    return kk.cpu().numpy(), ss[order], pp[order]
 
 
 def _fit_tuple_budget(c, h: int, max_tuples: int):

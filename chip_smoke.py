@@ -72,10 +72,12 @@ Phases, each of which exits non-zero on failure:
    0: the transpose probe (PyTorch's transpose of the u8 plane
    [1288, 512, 128], the same through int32, the kernel on the
    [256, 128, 128] sub-plane and on the whole plane) and the int16
-   probe (all ten ops at [256, 128] on the probe's input and at
-   [65536, 128]), every kernel result equal to its plain version; then
-   holds the transpose kernel to its plain version on phase 4's dirs
-   plane, exactly, and times both;
+   probe (all ten ops at [256, 128] on the probe's input, and at
+   [65536, 128] and [1048576, 128] on random int16), every kernel
+   result equal to its plain version, and prints each op's kernel,
+   plain and bound milliseconds and share of the bound at each row
+   count; then holds the transpose kernel to its plain version on
+   phase 4's dirs plane, exactly, and times both;
 9. runs the batched path on bands wider than 2048 lanes, counted: a
    segment whose band buckets to W 3072 on two random 1.2 kbp
    sequences, on the card and on the CPU (the plain twins), which must
@@ -108,9 +110,14 @@ Phases, each of which exits non-zero on failure:
    launch counters set to 0, requiring one launch of each per launch
    of the plans, every transcript rescoring exactly to its score; holds
    both kernels to their plain twins on the first query's launch,
-   exactly; and times ingest, the index, the queries (the share of the
-   statistics on the card), the extension and each launch of both
-   kernels;
+   exactly; extends the same segments again with the walk on the host
+   (``device_walk=False``: the DP kernel launched once per launch, the
+   walk kernel never), requiring transcripts and start cells equal to
+   the device walk's; maps 8 reads of 5 kbp to a 60 kbp reference at
+   DNA word length 16 (int64 k-mer keys) on the card and on the CPU,
+   requiring the same table and segments and locus recall 1.0; and
+   times ingest, the index, the queries (the share of the statistics on
+   the card), the extension both ways and each launch of both kernels;
 12. runs the N-way path on the card and on the CPU, requiring the
    same seed tuples, the same segments (p-hat, S0 and S1 within rtol
    1e-5, atol 1e-6) and block recall 1.0, and times the seed build and
@@ -144,6 +151,7 @@ PROTEIN_LEN = 2000
 TWIN_PREFIX = 10_000      # rows of the DNA pair held to the row twin
 SCORE_BENCH = dict(B=4096, L=10240, n=10000, band=100, W=128)
 I16_ROWS = 65536          # the int16 probe's ops where bytes bound them
+I16_ROW_COUNTS = (256, I16_ROWS, 1 << 20)    # phase 8's int16 shapes
 ROWS_IN_FLIGHT = (44, 128, 256, 512, 1024)   # K1's plane rows, phase 5
 
 # Operations per unit of work, counted from each kernel's source at the
@@ -183,6 +191,9 @@ DISCOVERY_TOL = dict(rtol=1e-5, atol=1e-6)   # p-hat, S0, S1: card vs CPU
 MAPPING = dict(ref=5_000_000, reads=1000, read_len=10_000, queries=100,
                sub=0.06, go=0.02, ge=0.05, index_wordlen=8)
 MAPPING_SEED = 20261019
+# phase 11's wide word: reads mapped to a reference shorter than
+# WordBlotLocalRef.WIDE_MAX_REF at a word too wide for int32 keys
+WIDE_MAPPING = dict(ref=60_000, reads=8, read_len=5000, wordlen=16)
 MAPPER = dict(wordlen=12, g_max=0.25)
 MAPPING_QUERY = dict(K_min=2000, p_min=0.5)
 LOCUS_RADIUS = 200        # fixed_ref_bench.py's diagonal tolerance
@@ -816,6 +827,24 @@ def mapping_phase(dev, card, subst):
             fail("mapped transcripts hold %d ops, under 80%% of the queries'"
                  " letters" % ops)
 
+        # -- the same extension walked on the host (device_walk=False):
+        # K1 on the card, each plane copied and walked by the C++ tier,
+        # the transcripts the device walk's
+        dp_ad.LAUNCHES = 0
+        walk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        host_walked = [pipeline.extend_segments(
+            q, R, [top], subst=subst, go_score=GO, ge_score=GE,
+            with_transcripts=True, device_walk=False, device=dev)
+            for q, top in zip(queries, tops)]
+        host_walk_s = time.perf_counter() - t0
+        if (dp_ad.LAUNCHES, walk.LAUNCHES) != (n_plan, 0):
+            fail("mapping, host walk: launches dp_ad %d, walk %d; the plans"
+                 " hold %d" % (dp_ad.LAUNCHES, walk.LAUNCHES, n_plan))
+        if host_walked != mapped:
+            fail("mapping: the host walk's transcripts differ from the"
+                 " device walk's")
+
         # -- each launch of the plans timed alone; the first query's
         # launch held to the twins
         timed = []
@@ -878,6 +907,11 @@ def mapping_phase(dev, card, subst):
              matches / ops, map_counts, n_plan, secs["smoke.map.extend"],
              cells / secs["smoke.map.extend"] / 1e9, len(timed), dp_ms,
              dp_bound, walk_ms, walk_bound))
+    print("mapping extension walked on the host (device_walk=False, %s):"
+          " %.3f s for the %d queries (the device walk %.3f s), transcripts"
+          " and start cells == the device walk's" % (
+              card, host_walk_s, len(queries), secs["smoke.map.extend"]))
+    wide_mapping(dev, card)
     return {"launches": map_counts,
             "dp_ad": {"plan_ms": dp_ms, "plan_bound_ms": dp_bound,
                       "held_launch": twin["shape"],
@@ -887,6 +921,65 @@ def mapping_phase(dev, card, subst):
                      "held_launch": twin["shape"],
                      "held_plain_ms": twin["walk_plain_ms"],
                      "held_max_abs_err": twin["walk_err"]}}
+
+
+def wide_mapping(dev, card):
+    """Phase 11, last: a few reads mapped to a reference shorter than
+    ``WordBlotLocalRef.WIDE_MAX_REF`` at DNA word length 16, past int32
+    keys, on the card and on the CPU: the reference's table and the
+    segments equal, p-hat, S0 and S1 within the discovery tolerance, and
+    locus recall 1.0."""
+    import numpy as np
+
+    from biseqt_tpu_torch.blot import WordBlotLocalRef
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    w, m = WIDE_MAPPING, MAPPING
+    A4 = Alphabet("ACGT")
+    rng = np.random.default_rng(MAPPING_SEED + 1)
+    ref_codes = rng.integers(0, 4, w["ref"]).astype(np.int8)
+    loci = rng.integers(0, w["ref"] - w["read_len"], w["reads"])
+    reads = [Sequence(A4, channel(np, rng, ref_codes[r0:r0 + w["read_len"]],
+                                  m["sub"], m["go"], m["ge"]))
+             for r0 in loci]
+    R = Sequence(A4, ref_codes)
+    kw = dict(wordlen=w["wordlen"], g_max=MAPPER["g_max"])
+    t0 = time.perf_counter()
+    on_card = WordBlotLocalRef(R, device=dev, **kw)
+    got = on_card.similar_segments_batch(reads, **MAPPING_QUERY)
+    card_s = time.perf_counter() - t0
+    on_cpu = WordBlotLocalRef(R, device="cpu", **kw)
+    want = on_cpu.similar_segments_batch(reads, **MAPPING_QUERY)
+    if not (on_card._ref_keys.dtype == np.int64
+            and np.array_equal(on_card._ref_keys, on_cpu._ref_keys)
+            and np.array_equal(on_card._ref_pos, on_cpu._ref_pos)):
+        fail("wide word: the reference's table on the card differs from"
+             " the CPU's")
+    strip = lambda segs: [(sg["segment"], sg["num_seeds"]) for sg in segs]
+    err = 0.0
+    for k, (g, c) in enumerate(zip(got, want)):
+        if strip(g) != strip(c):
+            fail("wide word, read %d: the card %s, the CPU %s"
+                 % (k, strip(g), strip(c)))
+        if g:
+            a, b = (np.asarray([(sg["p"], *sg["score"]) for sg in segs])
+                    for segs in (g, c))
+            err = max(err, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, **DISCOVERY_TOL):
+                fail("wide word, read %d: p-hat / scores differ (max |d| %r)"
+                     % (k, err))
+    tops = [max(segs, key=lambda sg: sg["num_seeds"]) if segs else None
+            for segs in got]
+    recall = sum(top is not None and top["segment"][0][0] - LOCUS_RADIUS
+                 <= -int(r0) <= top["segment"][0][1] + LOCUS_RADIUS
+                 for top, r0 in zip(tops, loci)) / len(reads)
+    if recall != 1.0:
+        fail("wide word: locus recall %r, not 1.0" % recall)
+    print("mapping at word length %d (%s): %d reads of %d bp against %d bp,"
+          " int64 keys; the table and %d segments == the CPU's (p-hat, S0,"
+          " S1 max |d| %.3g); locus recall %.2f; %.3f s on the card"
+          % (w["wordlen"], card, len(reads), w["read_len"], w["ref"],
+             sum(map(len, got)), err, recall, card_s))
 
 
 def nway_phase(dev, card):
@@ -1406,7 +1499,7 @@ def main():
     transpose_probe.LAUNCHES = 0
     i16_probe.LAUNCHES = 0
     tr_legs = transpose_probe.run()
-    i16_rows = i16_probe.run(rows=(256, I16_ROWS))
+    i16_rows = i16_probe.run(rows=I16_ROW_COUNTS)
     probe_counts = {"transpose_probe": transpose_probe.LAUNCHES,
                     "i16_probe": i16_probe.LAUNCHES}
     print("launches of the probes' kernels: %s" % probe_counts)
@@ -1422,15 +1515,27 @@ def main():
         if not row["ok"]:
             fail("i16 op %r at %d rows: %s" % (row["op"], row["rows"],
                                                row["error"]))
-        print("i16 probe: OK %s [%d, 128]: kernel %.4f ms, plain %.4f ms,"
-              " bound %.4f ms" % (row["op"], row["rows"], row["ms"],
-                                  row["plain_ms"], row["bound_ms"]))
+        print("i16 probe: OK %-22s [%7d, 128]: kernel %.4f ms, plain %.4f"
+              " ms, bound %.4f ms, share %5.1f%%%s"
+              % (row["op"], row["rows"], row["ms"], row["plain_ms"],
+                 row["bound_ms"], 100 * row["bound_ms"] / row["ms"],
+                 "" if row["ms"] <= row["plain_ms"] else
+                 ", slower than plain"))
+    i16_by_rows = {}
+    for R in I16_ROW_COUNTS:
+        ten = [row for row in i16_rows if row["rows"] == R]
+        i16_by_rows[R] = {key: sum(row[key] for row in ten)
+                          for key in ("ms", "plain_ms", "bound_ms")}
+        print("i16 probe: ten ops at [%d, 128]: kernel %.4f ms, plain %.4f"
+              " ms, bound %.4f ms, share %.1f%%"
+              % (R, i16_by_rows[R]["ms"], i16_by_rows[R]["plain_ms"],
+                 i16_by_rows[R]["bound_ms"],
+                 100 * i16_by_rows[R]["bound_ms"] / i16_by_rows[R]["ms"]))
     # the probe's kernel leg and library leg on the whole probe plane
     tr_kernel, tr_library = (
         next(leg for leg in tr_legs if leg["leg"] == name
              and leg["shape"] == list(transpose_probe.PLANE))
         for name in ("kernel_transpose_u8", "library_transpose_u8"))
-    big = [row for row in i16_rows if row["rows"] == I16_ROWS]
     i16_err = max(row["max_abs_err"] for row in i16_rows)
 
     # the transpose on phase 4's dirs plane, the walk redesign's input
@@ -1567,16 +1672,18 @@ def main():
          "ms": tr_kernel["ms"], "plain_ms": tr_library["ms"],
          "bound_ms": tr_kernel["bound_ms"], "bound_by": "bytes",
          "library_ms": tr_library["ms"]},
-        # the ten ops at [I16_ROWS, 128], summed; each plain version is
-        # the op's PyTorch call, so plain = library
+        # the ten ops at [I16_ROWS, 128], summed (and at each row count
+        # of phase 8); each plain version is the op's PyTorch call, so
+        # plain = library
         {"name": "i16_probe", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/i16_probe.cu",
          "replaces": "experiments/mosaic_i16_probe.py:21",
          "launches": probe_counts["i16_probe"], "max_abs_err": i16_err,
-         "ms": sum(row["ms"] for row in big),
-         "plain_ms": sum(row["plain_ms"] for row in big),
-         "bound_ms": sum(row["bound_ms"] for row in big), "bound_by": "bytes",
-         "library_ms": sum(row["plain_ms"] for row in big)},
+         "ms": i16_by_rows[I16_ROWS]["ms"],
+         "plain_ms": i16_by_rows[I16_ROWS]["plain_ms"],
+         "bound_ms": i16_by_rows[I16_ROWS]["bound_ms"], "bound_by": "bytes",
+         "library_ms": i16_by_rows[I16_ROWS]["plain_ms"],
+         "ten_ops_by_rows": i16_by_rows},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ device); each is held to both of the JAX package's tiers (its host
 tolerances: the reference tables, each query's seed arrays, the
 segments of ``similar_segments`` and ``similar_segments_batch``
 (both assemblers), the overlap bands, the N-way segments and per-seed
-scores.
+scores.  At words too wide for int32 keys (DNA word length 16, the
+20-letter protein alphabet at 8) they are held to the JAX package's host
+tier, the one that answers there, and past its size limit they raise as
+its device tier does.
 """
 
 import numpy as np
@@ -384,3 +387,116 @@ def test_wordblot_multiple_gate_and_score_seeds_match():
           for p in ([1, 0, 0, 0], [0, 1, 0, 0])], wordlen=4, device="cpu")
     assert empty.score_seeds(K=20) == []
     assert list(empty.similar_segments(K_min=20, p_min=0.5)) == []
+
+
+# ---------------------------------------------------------------------------
+# words too wide for int32 keys
+# ---------------------------------------------------------------------------
+
+P20 = Alphabet("ACDEFGHIKLMNPQRSTVWY")
+WIDE = [(A4, 16), (P20, 8)]       # |Σ|^w = 2^32 and 2.56e10
+
+
+@pytest.mark.parametrize("alphabet,wordlen", WIDE)
+@pytest.mark.parametrize("assembler", ["dense", "sparse"])
+def test_local_ref_wide_words_match_host_tier(monkeypatch, alphabet, wordlen,
+                                              assembler):
+    """A word past int32 keys on a reference under ``WIDE_MAX_REF``: the
+    table, each query's seeds and the segments (serial and batched) equal
+    the JAX package's host tier, the only tier of it that answers."""
+    if assembler == "sparse":
+        for cls in (ref.WordBlot, port.WordBlot):
+            monkeypatch.setattr(cls, "MAX_GRID_CELLS", 1)
+    rng = np.random.default_rng(46)
+    T = rand_seq(alphabet, 3000, rng=rng)
+    M = MutationProcess(alphabet, subst_probs=0.02, go_prob=0.01,
+                        ge_prob=0.05, rng=rng)
+    queries = [T[1000:2000], rand_seq(alphabet, 400, rng=rng),
+               rand_seq(alphabet, 100, rng=rng) + M.mutate(T[200:1200])[0]]
+    got = port.WordBlotLocalRef(from_reference(T), wordlen=wordlen,
+                                device="cpu")
+    want = ref.WordBlotLocalRef(T, wordlen=wordlen, device=False)
+    assert got._ref_keys.dtype == got._ref_pos.dtype == np.int64
+    assert np.array_equal(got._ref_keys, want._ref_keys)
+    assert np.array_equal(got._ref_pos, want._ref_pos)
+    pq = [from_reference(q) for q in queries]
+    serial = [list(got.similar_segments(q, K_min=200, p_min=0.5))
+              for q in pq]
+    for q, g, segs in zip(queries, pq, serial):
+        for a, b in zip(got._as_wordblot(port.WordBlot, g).seed_index
+                        .seed_arrays(), want._as_wordblot(ref.WordBlot, q)
+                        .seed_index.seed_arrays()):
+            assert np.array_equal(a, b)
+        _same_segments(segs, list(want.similar_segments(q, K_min=200,
+                                                        p_min=0.5)))
+    assert len(serial[0]) == 1 and serial[1] == [] and serial[2]
+    assert got.similar_segments_batch(pq, K_min=200, p_min=0.5) == serial
+
+
+@pytest.mark.parametrize("alphabet,wordlen", WIDE)
+def test_overlap_ref_wide_words_match_host_tier(alphabet, wordlen):
+    rng = np.random.default_rng(47)
+    r2 = rand_seq(alphabet, 1500, rng=rng)
+    r1 = r2[700:] + rand_seq(alphabet, 600, rng=rng)
+    got = port.WordBlotOverlapRef(from_reference(r2), wordlen=wordlen,
+                                  g_max=0.2, device="cpu")
+    want = ref.WordBlotOverlapRef(r2, wordlen=wordlen, g_max=0.2,
+                                  device=False)
+    assert np.array_equal(got._ref_keys, want._ref_keys)
+    res = got.highest_scoring_overlap_band(from_reference(r1))
+    w = want.highest_scoring_overlap_band(r1)
+    assert (res["d_band"], res["expected_len"]) == (w["d_band"],
+                                                    w["expected_len"])
+    _close([res["p"], *res["score"]], [w["p"], *w["score"]],
+           "wide-word overlap band")
+
+
+def test_fixed_ref_wide_word_answers_where_the_jax_package_does():
+    """The repro: a 3 kbp reference and the query at [1000:2000] at DNA
+    word length 16 give one segment on both packages.  A reference of
+    ``WIDE_MAX_REF`` letters or more raises at that word, as the JAX
+    package's device tier does, one letter less answers; an int32 word
+    answers at any length."""
+    rng = np.random.default_rng(0)
+    T = rand_seq(A4, 3000, rng=rng)
+    q = T[1000:2000]
+    want = list(ref.WordBlotLocalRef(T, wordlen=16).similar_segments(
+        q, 200, 0.5))
+    got = list(port.WordBlotLocalRef(from_reference(T), wordlen=16,
+                                     device="cpu").similar_segments(
+        from_reference(q), 200, 0.5))
+    assert len(got) == len(want) == 1
+    _same_segments(got, want)
+    assert port.WordBlotLocalRef.WIDE_MAX_REF == \
+        ref.WordBlotLocalRef.DEVICE_MIN_REF == 1 << 16
+    long = rand_seq(A4, 1 << 16, rng=rng)
+    for cls in ("WordBlotLocalRef", "WordBlotOverlapRef"):
+        with pytest.raises(ValueError, match="must fit int32; got 4\\^16"):
+            getattr(ref, cls)(long, wordlen=16)
+        with pytest.raises(ValueError, match="must fit int32; got 4\\^16"):
+            getattr(port, cls)(from_reference(long), wordlen=16,
+                               device="cpu")
+    got = port.WordBlotLocalRef(from_reference(long[1:]), wordlen=16,
+                                device="cpu")
+    assert got._ref_keys.shape == (len(long) - 16,)
+    assert port.WordBlotLocalRef(from_reference(long), wordlen=15,
+                                 device="cpu")._ref_keys.shape == \
+        (len(long) - 14,)
+
+
+@pytest.mark.parametrize("alphabet,wordlen", WIDE)
+def test_wordblot_multiple_wide_words_match_host_tier(alphabet, wordlen):
+    rng = np.random.default_rng(53)
+    M = MutationProcess(alphabet, subst_probs=0.02, go_prob=0.005,
+                        ge_prob=0.05, rng=rng)
+    c = rand_seq(alphabet, 600, rng=rng)
+    seqs = [rand_seq(alphabet, 100, rng=rng) + M.mutate(c)[0]
+            + rand_seq(alphabet, 100, rng=rng) for _ in range(3)]
+    kw = dict(wordlen=wordlen, g_max=0.15)
+    got = port.WordBlotMultiple(*[from_reference(s) for s in seqs],
+                                device="cpu", **kw)
+    want = ref.WordBlotMultiple(*seqs, device=False, **kw)
+    assert got.seed_index.seeds() == want.seed_index.seeds()
+    segs = list(got.similar_segments(K_min=200, p_min=0.5))
+    assert segs
+    _same_nway(segs, list(want.similar_segments(K_min=200, p_min=0.5)))

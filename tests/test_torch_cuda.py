@@ -305,6 +305,15 @@ def test_extend_segments_card_matches_cpu(rng, card):
     assert got == want
     assert all(seg["score"] > 150 and len(seg["transcript"]) > 250
                for seg in got)
+    # the host walk over the card's plane: K1 launched, the walk kernel
+    # not, and the transcripts the device walk's
+    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    host = extend_segments(S, T, segments, device=card, use_pallas=True,
+                           device_walk=False, **kw)
+    assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES == n_walk
+    assert host == got
+    with pytest.raises(ValueError, match="use_pallas=False contradicts"):
+        extend_segments(S, T, segments, device=card, use_pallas=False, **kw)
 
 
 @pytest.mark.parametrize("W,B", [
@@ -502,11 +511,15 @@ def test_transpose_kernel_unaligned_base(rng, card):
     assert torch.equal(got, x.transpose(1, 2).contiguous())
 
 
-@pytest.mark.parametrize("rows", [256, 1001])
+@pytest.mark.parametrize("rows", [256, 1001, 1, 3, 5, 7, 255, 65537,
+                                  1 << 20])
 @pytest.mark.parametrize("name", i16_probe.OPS)
 def test_i16_kernel_matches_plain(rng, card, name, rows):
-    """Each op on the probe's input and on random int16 at a ragged row
-    count, and on an input whose base is not 8-byte aligned."""
+    """Each op on the probe's input and on random int16 at ragged row
+    counts (a warp's tile of 4 rows and a block's of 32 cut at several
+    points, and 1,048,576 rows, past the L2 cache), and on inputs whose
+    base is 2- or 8-byte but not 16-byte aligned (cloned by the
+    wrapper)."""
     host = (i16_probe.probe_input() if rows == 256 else
             rng.integers(-32768, 32768, (rows, 128)).astype(np.int16))
     x = torch.as_tensor(host, device=card)
@@ -516,9 +529,11 @@ def test_i16_kernel_matches_plain(rng, card, name, rows):
     want = i16_probe.i16_op_reference(name, x, device=card)
     assert i16_probe.LAUNCHES == n0 + 1
     assert got.dtype == torch.int16 and torch.equal(got, want)
-    shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, 128)
-    assert shifted.data_ptr() % 8
-    assert torch.equal(i16_probe.i16_op(name, shifted, device=card), want)
+    for shift in (1, 4):
+        shifted = torch.cat([x.new_zeros(shift), x.reshape(-1)])[shift:]
+        shifted = shifted.view(rows, 128)
+        assert shifted.data_ptr() % 16
+        assert torch.equal(i16_probe.i16_op(name, shifted, device=card), want)
 
 
 def test_entry_points_default_to_the_card(rng, card):
@@ -716,3 +731,30 @@ def test_wordblot_multiple_card_matches_cpu(rng, card):
     for lo, hi in blocks:
         assert any(s["segment"][1][0] // 2 < hi and
                    s["segment"][1][1] // 2 > lo for s in got)
+
+
+def test_wide_words_card_match_cpu(rng, card):
+    """Words too wide for int32 keys (DNA word length 16, protein 8) on
+    the fixed-reference and N-way paths: the reference's table, the
+    segments and the N-way seeds on the card equal the CPU's."""
+    from biseqt_tpu_torch.seeds import SeedIndexMultiple
+
+    for alphabet, wordlen in ((Alphabet("ACGT"), 16),
+                              (protein_alphabet(), 8)):
+        A = len(alphabet)
+        ref = Sequence(alphabet, rng.integers(0, A, 30_000))
+        queries = [ref[r0:r0 + 2000] for r0 in (1000, 12_000, 25_000)]
+        on_card = blot.WordBlotLocalRef(ref, wordlen=wordlen, device=card)
+        on_cpu = blot.WordBlotLocalRef(ref, wordlen=wordlen, device="cpu")
+        assert np.array_equal(on_card._ref_keys, on_cpu._ref_keys)
+        assert np.array_equal(on_card._ref_pos, on_cpu._ref_pos)
+        got = on_card.similar_segments_batch(queries, K_min=500, p_min=0.5)
+        want = on_cpu.similar_segments_batch(queries, K_min=500, p_min=0.5)
+        assert all(got) and [[(s["segment"], s["num_seeds"]) for s in g]
+                             for g in got] == \
+            [[(s["segment"], s["num_seeds"]) for s in w] for w in want]
+        seqs = [ref[:6000], ref[3000:9000], ref[:9000]]
+        seeds = SeedIndexMultiple(*seqs, wordlen=wordlen, device=card)
+        assert len(seeds) > 2000
+        assert seeds.seeds() == SeedIndexMultiple(
+            *seqs, wordlen=wordlen, device="cpu").seeds()

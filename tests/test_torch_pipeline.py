@@ -4,8 +4,10 @@ sequences and the same Word-Blot segments.
 
 Reruns the geometry of tests/test_pipeline.py: the fused DP + device
 walk route in interpret mode (both the sublane and the lane-packed
-walk), score-only extension, the a-window split contract, and the
-up-front error when the C++ tier is missing.  Tolerance is exact:
+walk), the host walk route (``device_walk=False``), score-only
+extension, the a-window split contract, and the up-front error when the
+C++ tier is missing; and holds the port's keywords to the JAX
+package's.  Tolerance is exact:
 scores, transcripts, start cells and source indices equal.
 """
 
@@ -63,6 +65,62 @@ def test_extend_segments_matches_pallas_pipeline(rng, monkeypatch,
     assert got == want
     _rescores(S, T, got)
     assert all(len(seg["transcript"]) > 60 for seg in got)
+
+
+def test_extend_segments_host_walk_matches(rng):
+    """``device_walk=False``: the plane walked on the host by the C++
+    tier.  Transcripts, start cells and scores equal the device walk's
+    and the JAX package's own ``device_walk=False`` route (its Pallas
+    kernel in interpret mode, its plane walked by the same C++ walk);
+    a segment over unrelated sequence walks the same on both routes."""
+    S, T, segments = _two_cores(rng)
+    segments = segments + [{"segment": ((-50, 50), (0, 40))}]
+    kw = dict(subst=UNIT, go_score=-3.0, ge_score=-1.0,
+              with_transcripts=True, _r_chunk=16)
+    want = ref_pipeline.extend_segments(
+        S, T, segments, use_pallas=True, _interpret=True, device_walk=False,
+        **kw)
+    pS, pT = from_reference(S), from_reference(T)
+    on_host = pipeline.extend_segments(pS, pT, segments, device="cpu",
+                                       use_pallas=False, device_walk=False,
+                                       **kw)
+    on_device = pipeline.extend_segments(pS, pT, segments, device="cpu",
+                                         **kw)
+    assert on_host == on_device == want
+    _rescores(S, T, on_host)
+
+
+def test_extend_segments_takes_the_jax_keywords():
+    """Every keyword of the JAX package's ``extend_segments`` but its TPU
+    knobs is a keyword of the port's, with the same default."""
+    import inspect
+
+    tpu_only = {"_interpret", "_walk_r_rows"}
+    ref_params = inspect.signature(ref_pipeline.extend_segments).parameters
+    params = inspect.signature(pipeline.extend_segments).parameters
+    for name, p in ref_params.items():
+        if name in tpu_only:
+            assert name not in params
+            continue
+        assert name in params, name
+        assert params[name].default == p.default, name
+
+
+@pytest.mark.parametrize("use_pallas", [None, False, True])
+def test_extend_segments_use_pallas_names_the_device(rng, use_pallas):
+    """``use_pallas`` must agree with ``device``: on the CPU, ``True``
+    (the kernels) raises before any work, ``None`` and ``False`` run the
+    plain twins."""
+    S = from_reference(rand_seq(A4, 100, rng=rng))
+    seg = [{"segment": ((-10, 10), (0, 200))}]
+    if use_pallas:
+        with pytest.raises(ValueError, match="use_pallas=True contradicts"):
+            pipeline.extend_segments(S, S, seg, use_pallas=True,
+                                     device="cpu")
+    else:
+        got = pipeline.extend_segments(S, S, seg, use_pallas=use_pallas,
+                                       device="cpu")
+        assert got[0]["score"] == 100.0
 
 
 def test_extend_segments_score_only_matches(rng):

@@ -6,7 +6,9 @@ bands exactly, and a snapshot written by either package loads in the
 other and answers the same.  ``SeedIndexMultiple`` (one tier, its
 k-mer table sorted on the device) is held to both of the JAX package's
 tiers, the host dict tier and the device tier, exactly: the seed
-tuples, their order, and the tuple budget's caps.
+tuples, their order, and the tuple budget's caps.  At words too wide for
+int32 keys (past int64 too) it is held to the host tier, the one that
+answers there, and past its size limit it raises as the device tier does.
 """
 
 import numpy as np
@@ -189,3 +191,56 @@ def test_fit_tuple_budget_matches():
         assert np.array_equal(got, ref_seeds._fit_tuple_budget(c, h, budget))
         assert got.dtype == np.int64
         assert (got.astype(np.float64).prod(axis=1) <= budget).all()
+
+
+P20 = Alphabet("ACDEFGHIKLMNPQRSTVWY")
+
+
+@pytest.mark.parametrize("alphabet,wordlen,h", [
+    (A4, 16, 8), (A4, 16, 1), (P20, 8, 8),
+    (A4, 32, 2),          # |Σ|^w = 2^64: past int64, the exact keys' ranks
+    (P20, 15, 8),         # 20^15 > 2^63
+])
+def test_seed_index_multiple_wide_words_match_host_tier(alphabet, wordlen, h):
+    """Words past int32 keys on inputs of at most ``WIDE_MAX_LETTERS``
+    letters: the seeds equal the JAX package's host tier, the only tier
+    of it that answers there."""
+    rng = np.random.default_rng(37)
+    M = MutationProcess(alphabet, subst_probs=0.02, go_prob=0.005,
+                        ge_prob=0.05, rng=rng)
+    core = rand_seq(alphabet, 500, rng=rng)
+    seqs = [rand_seq(alphabet, 80, rng=rng) + M.mutate(core)[0]
+            + rand_seq(alphabet, 60, rng=rng) + M.mutate(core[:200])[0]
+            for _ in range(4)]
+    got = SeedIndexMultiple(*[from_reference(s) for s in seqs],
+                            wordlen=wordlen, max_hits_per_kmer=h,
+                            device="cpu")
+    want = ref_seeds.SeedIndexMultiple(*seqs, wordlen=wordlen,
+                                       max_hits_per_kmer=h, device=False)
+    assert got.seeds() == want.seeds()
+    assert len(got) > 50
+
+
+def test_seed_index_multiple_wide_word_answers_where_the_jax_package_does():
+    """The repro: a 3 kbp reference and twice the query at [1000:2000]
+    give 985 seeds at DNA word length 16 on both packages.  Past
+    ``WIDE_MAX_LETTERS`` letters in all that word raises, as the JAX
+    package's device tier does; at the limit it answers."""
+    rng = np.random.default_rng(0)
+    T = rand_seq(A4, 3000, rng=rng)
+    q = T[1000:2000]
+    want = ref_seeds.SeedIndexMultiple(T, q, q, wordlen=16).seeds()
+    got = SeedIndexMultiple(*map(from_reference, (T, q, q)), wordlen=16,
+                            device="cpu").seeds()
+    assert len(got) == len(want) == 985 and got == want
+    assert SeedIndexMultiple.WIDE_MAX_LETTERS == 200_000
+    big = [rand_seq(A4, 100_000, rng=rng), rand_seq(A4, 100_001, rng=rng)]
+    with pytest.raises(ValueError, match="must fit int32; got 4\\^16"):
+        ref_seeds.SeedIndexMultiple(*big, wordlen=16)
+    with pytest.raises(ValueError, match="must fit int32; got 4\\^16"):
+        SeedIndexMultiple(*map(from_reference, big), wordlen=16,
+                          device="cpu")
+    at_limit = [big[0], big[1][1:]]
+    assert SeedIndexMultiple(*map(from_reference, at_limit), wordlen=16,
+                             device="cpu").seeds() == \
+        ref_seeds.SeedIndexMultiple(*at_limit, wordlen=16).seeds()
