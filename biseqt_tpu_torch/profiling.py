@@ -10,6 +10,7 @@ the CUDA tensors in it before the timer stops.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -20,7 +21,7 @@ from collections import defaultdict
 import torch
 
 __all__ = ["Phase", "counters", "report", "gcups", "cuda_ms", "bound_ms",
-           "materialize", "sass_step_loop", "cuobjdump_sass",
+           "materialize", "sass_step_loop", "cuobjdump_sass", "trace",
            "HBM_BYTES_PER_S", "FP32_OPS_PER_S", "INT32_OPS_PER_S"]
 
 _REGISTRY = defaultdict(lambda: {"calls": 0, "seconds": 0.0, "cells": 0})
@@ -228,3 +229,24 @@ def report(reset: bool = False) -> str:
     if reset:
         _REGISTRY.clear()
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = None):
+    """A ``torch.profiler`` trace of the block (host activity, and the
+    card's where one is present) written to ``log_dir`` as a Chrome
+    trace (``<pid>.<ns>.pt.trace.json``) when a directory is given; a
+    no-op otherwise.  Yields the profiler, or None."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        log_dir, "%d.%d.pt.trace.json" % (os.getpid(), time.time_ns())))

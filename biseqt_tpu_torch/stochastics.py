@@ -2,7 +2,7 @@
 
 The port of :mod:`biseqt_tpu.stochastics` (the reference's
 ``biseqt/stochastics.py — rand_seq, MutationProcess,
-binomial_to_normal, normal_neg_log_pvalue``), in two parts:
+binomial_to_normal, normal_neg_log_pvalue``), in three parts:
 
 * the host tier, a copy of the JAX package's numpy simulation
   (:func:`rand_seq`, :func:`rand_read`, :class:`MutationProcess`):
@@ -11,10 +11,14 @@ binomial_to_normal, normal_neg_log_pvalue``), in two parts:
 * the null-model math (:func:`binomial_to_normal`,
   :func:`np_log_erfc`, :func:`normal_neg_log_pvalue`) in float32
   PyTorch on ``device`` (the card by default).  Word-Blot's statistics
-  (:mod:`.ops.blot_stats`) call it.
-
-The JAX package's device tier (``rand_seq_batch``, ``mutate_batch``) is
-not ported yet.
+  (:mod:`.ops.blot_stats`) call it;
+* the batch tier (:func:`rand_seq_batch`, :func:`mutate_batch`), which
+  makes large packed workloads on ``device`` from a ``torch.Generator``.
+  Its random draws cannot equal ``jax.random``'s, so
+  :func:`mutate_batch` is split into the draws
+  (:func:`batch_mutation_draws`) and a deterministic materialisation
+  (:func:`apply_batch_mutations`): given the JAX package's draws, the
+  materialisation gives its codes and lengths exactly.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from .ops.banded_dp import on_device, resolve_device
-from .sequence import Alphabet, EditTranscript, Sequence
+from .sequence import PAD, Alphabet, EditTranscript, Sequence
 
 __all__ = [
     "rand_seq",
@@ -34,6 +38,10 @@ __all__ = [
     "binomial_to_normal",
     "normal_neg_log_pvalue",
     "np_log_erfc",
+    "rand_seq_batch",
+    "mutate_batch",
+    "batch_mutation_draws",
+    "apply_batch_mutations",
 ]
 
 
@@ -214,3 +222,144 @@ def normal_neg_log_pvalue(mu, sd, x, *, device="cuda"):
     return torch.where(sd > 0, out, torch.where(
         x > mu, torch.tensor(math.inf, device=device),
         torch.tensor(0.0, device=device)))
+
+
+# ---------------------------------------------------------------------------
+# Batch tier (packed [B, L] workloads on the device)
+# ---------------------------------------------------------------------------
+
+def _check_generator(generator: torch.Generator, device: torch.device):
+    gen = generator.device
+    if gen.type != device.type or (
+            device.type == "cuda" and (gen.index or 0) != device.index):
+        raise ValueError("the generator lives on %s, the output on %s"
+                         % (gen, device))
+
+
+def rand_seq_batch(generator, batch, length, alphabet_len=4, p=None, *,
+                   device="cuda"):
+    """A batch of random code rows, int8 ``[batch, length]`` on
+    ``device``, letters iid uniform or with probabilities ``p``.
+    ``generator`` is a ``torch.Generator`` on ``device``."""
+    device = resolve_device(device)
+    _check_generator(generator, device)
+    if p is None:
+        return torch.randint(0, alphabet_len, (batch, length),
+                             generator=generator, device=device,
+                             dtype=torch.int8)
+    probs = torch.as_tensor(np.asarray(p, np.float64), device=device)
+    draws = torch.multinomial(probs, batch * length, replacement=True,
+                              generator=generator)
+    return draws.reshape(batch, length).to(torch.int8)
+
+
+def batch_capacity(length: int) -> int:
+    """The output width of :func:`mutate_batch` for input width L."""
+    return int(length + max(16, length // 2))
+
+
+def batch_mutation_draws(generator, batch, length, subst_prob, go_prob,
+                         ge_prob, alphabet_len=4, *, device="cuda"):
+    """The random draws of :func:`mutate_batch`, in the JAX package's
+    order and shapes: ``err`` (substitute, bool [B, L]), ``shift``
+    (1..|Σ|-1, int [B, L]), ``deleted`` (bool [B, L], at the marginal
+    rate ``(go/2)/(1-ge)`` capped at 0.49), ``ins_open`` (bool [B, L],
+    at go/2), ``u`` (float32 [B, L] in [1e-7, 1), the insertion runs'
+    uniforms) and ``ins_codes`` (int [B, cap], the inserted letters)."""
+    device = resolve_device(device)
+    _check_generator(generator, device)
+    B, L = int(batch), int(length)
+    cap = batch_capacity(L)
+    rand = lambda: torch.rand((B, L), generator=generator, device=device)
+    ints = lambda lo, shape: torch.randint(
+        lo, alphabet_len, shape, generator=generator, device=device,
+        dtype=torch.int32)
+    half_go = float(go_prob) / 2.0
+    err = rand() < subst_prob
+    shift = ints(1, (B, L))
+    deleted = rand() < min(half_go / max(1.0 - float(ge_prob), 1e-6), 0.49)
+    ins_open = rand() < half_go
+    u = rand() * (1.0 - 1e-7) + 1e-7
+    ins_codes = ints(0, (B, cap))
+    return {"err": err, "shift": shift, "deleted": deleted,
+            "ins_open": ins_open, "u": u, "ins_codes": ins_codes}
+
+
+_DRAW_TYPES = {"err": torch.bool, "shift": torch.int32,
+               "deleted": torch.bool, "ins_open": torch.bool,
+               "u": torch.float32, "ins_codes": torch.int32}
+
+
+def apply_batch_mutations(codes, lengths, draws, ge_prob, alphabet_len=4,
+                          max_ins_run=8, *, device="cuda"):
+    """Materialise :func:`mutate_batch`'s mutants from its ``draws`` (the
+    dict :func:`batch_mutation_draws` returns; numpy arrays or tensors on
+    ``device``): substitutions through ``(code + shift) % |Σ|``, kept
+    letters, and before each kept or deleted origin position an
+    insertion run of ``min(1 + floor(log u / log ge), max_ins_run)``
+    letters where ``ins_open``.  Output slot q maps back to its origin
+    slot by a row-wise ``searchsorted(..., right=True)`` over the
+    cumulative output widths.  Returns ``(codes int8 [B, cap], lengths
+    int32 [B])`` with PAD tails."""
+    device = resolve_device(device)
+    codes = on_device(codes, torch.int32, device)
+    lengths = on_device(lengths, torch.int32, device)
+    B, L = codes.shape
+    cap = batch_capacity(L)
+    d = {k: on_device(draws[k], dtype, device)
+         for k, dtype in _DRAW_TYPES.items()}
+    sub_codes = torch.where(d["err"], (codes + d["shift"]) % alphabet_len,
+                            codes)
+    if ge_prob > 0:
+        # an f32 quotient by a tensor (a scalar divisor would become a
+        # multiply by its reciprocal on the card), floored
+        log_ge = torch.full_like(d["u"], float(np.log(ge_prob)))
+        run = 1.0 + torch.floor(torch.log(d["u"]) / log_ge)
+    else:
+        run = torch.ones_like(d["u"])
+    # capped before the integer cast, so a huge run cannot overflow it
+    run = torch.clamp(run, max=float(max_ins_run)).to(torch.int32)
+    geo = torch.where(d["ins_open"], run, 0)
+    valid = torch.arange(L, device=device)[None, :] < lengths[:, None]
+    keep = valid & ~d["deleted"]
+    out_w = keep.to(torch.int32) + torch.where(valid, geo, 0)
+    ends = torch.cumsum(out_w, dim=1, dtype=torch.int32)    # inclusive
+    offs = ends - out_w                                      # exclusive
+    mut_lengths = torch.clamp(ends[:, -1], max=cap)
+
+    # invert the ragged expansion: output slot q -> origin slot p
+    qidx = torch.arange(cap, dtype=torch.int32, device=device)
+    p = torch.searchsorted(ends, qidx[None, :].expand(B, cap).contiguous(),
+                           right=True)
+    p = torch.clamp(p, max=L - 1)
+    rank = qidx[None, :] - torch.gather(offs, 1, p)
+    is_ins = rank < torch.gather(geo, 1, p)
+    letters = torch.where(is_ins, d["ins_codes"],
+                          torch.gather(sub_codes, 1, p))
+    mask = qidx[None, :] < mut_lengths[:, None]
+    return torch.where(mask, letters, PAD).to(torch.int8), mut_lengths
+
+
+def mutate_batch(generator, codes, lengths, subst_prob, go_prob, ge_prob,
+                 alphabet_len=4, max_ins_run=8, *, device="cuda"):
+    """Vectorised mutation of a packed batch (capacity-bounded).
+
+    Every origin position independently draws a substitution through
+    the error channel, a deletion flag at the sequential model's
+    *marginal* deletion rate ``(go/2)/(1-ge)``, and an insertion run of
+    Geometric(ge) length opened with probability go/2; run-length
+    coupling of deletions is approximated iid.  The host
+    :class:`MutationProcess` is the exact sequential model; this tier
+    fabricates large workloads on the device.
+
+    ``codes`` int8 ``[B, L]`` and ``lengths`` int32 ``[B]`` (numpy, or
+    tensors on ``device``); ``generator`` a ``torch.Generator`` on
+    ``device``.  Returns ``(mut_codes int8 [B, cap], mut_lengths int32
+    [B])``, ``cap = L + max(16, L // 2)``, with PAD tails.
+    """
+    device = resolve_device(device)
+    B, L = codes.shape
+    draws = batch_mutation_draws(generator, B, L, subst_prob, go_prob,
+                                 ge_prob, alphabet_len, device=device)
+    return apply_batch_mutations(codes, lengths, draws, ge_prob,
+                                 alphabet_len, max_ins_run, device=device)

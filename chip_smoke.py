@@ -26,7 +26,15 @@ reads mapped by ``blot.WordBlotLocalRef`` (word length 12, g_max 0.25,
 K_min 2000, p_min 0.5) and each extended with a transcript by
 ``pipeline.extend_segments``.  The N-way path runs
 ``blot.WordBlotMultiple`` on 10 sequences of ~100 kbp sharing two
-20 kbp blocks (word length 12, K_min 5000, p_min 0.75).
+20 kbp blocks (word length 12, K_min 5000, p_min 0.75).  The all-vs-all
+path runs the sort-join engine (``ops.allvsall_sorted``) on 1000 random
+reads of 10 kbp made on the card (``stochastics.rand_seq_batch``), the
+JAX package's overlap-recall config (1000 noisy 3 kbp reads of a
+100 kbp genome) and ``parallel.all_vs_all_overlaps(method="blockwise")``
+on a world-of-one mesh.  The protein path runs
+``protein.two_tier_scores`` on 16384 pairs of 2048 residues (10%
+homologs): the Dayhoff-6 filter and the BLOSUM62 rescore, one launch
+of the DP kernel each.
 
 Phases, each of which exits non-zero on failure:
 
@@ -121,20 +129,43 @@ Phases, each of which exits non-zero on failure:
 12. runs the N-way path on the card and on the CPU, requiring the
    same seed tuples, the same segments (p-hat, S0 and S1 within rtol
    1e-5, atol 1e-6) and block recall 1.0, and times the seed build and
-   discovery.
+   discovery;
+13. runs the all-vs-all path: ``overlap_stats_sorted`` on 1000 x 10 kbp
+   reads at word length 12, bucket 64 (max_run auto, 8), one warm call
+   timed on the host clock (seconds, pair-scores/s, composites, peak
+   memory), requiring the chunked run (max_chunk 256) to equal it
+   exactly, the first 256 reads to give the CPU's result (window, diag,
+   olap_len exactly; p and s0 within rtol 1e-5, atol 1e-6) and
+   ``all_vs_all_overlaps(method="sorted")`` to return exactly the pairs
+   the thresholds give on those stats; then the recall config (reads
+   simulated by the host ``MutationProcess`` in a worker process while
+   phases 1-12 run; word length 8, min_score 60, min_p 0.4, min_olap
+   500) through ``overlap_stats_sorted_chunked``, requiring the JAX
+   package's precision and recall from its CPU run (``RECALL_JAX_CPU``)
+   and the pairs check again; then the blockwise engine on 24 reads of
+   3 kbp, requiring the card to equal the CPU;
+14. runs the protein path with the DP kernel's launch counter set to 0,
+   requiring one launch a tier, the rescore's scores equal to a
+   full-only BLOSUM62 run exactly and homolog recall 1.0; holds the
+   DP kernel to its plain twin on 256 pairs at A 6 and A 20 (scores
+   exactly) and the call on 64 pairs to the CPU (every shared field
+   exactly); and times the filter, the rescore and the full-only run by
+   CUDA events beside the kernel's bound at this shape.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
 could take for the same work, from this run's bytes and operations;
 for the DP and walk kernels also their launches on each path, their
 times and bounds at the discovery path's largest launch, and the
-twins' time and error on the launch held to them),
+twins' time and error on the launch held to them; for the DP kernel
+also the protein path's times and bound),
 then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Fails (exit code not 0, no result)
 without a CUDA card or outside the repository.
 """
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -204,6 +235,38 @@ NWAY = dict(n=10, block=20_000, flank=(15_000, 25_000), sub=0.03, go=0.005,
             ge=0.02)
 NWAY_SEED = 7
 NWAY_QUERY = dict(K_min=5000, p_min=0.75)
+# phase 13: all-vs-all read overlaps (BASELINE.md config 4).  (a)
+# experiments/index_build_bench.py's defaults: 1000 random reads of
+# 10 kbp, joined at word length 12, bucket 64; (b) experiments/
+# overlap_recall.py --sweep at its middle rate; (c) overlap_recall.run's
+# default size through the blockwise engine on a mesh
+OVERLAP = dict(reads=1000, read_len=10_000, wordlen=12, bucket=64,
+               chunk=256, cpu_reads=256)
+OVERLAP_SEED = 20261020
+RECALL = dict(genome_len=100_000, read_len=3000, n_reads=1000, err=0.12,
+              seed=120)
+RECALL_SCORING = dict(wordlen=8, min_olap=500, min_score=60.0, min_p=0.4,
+                      min_window=5)
+# overlap_recall.run(genome_len=100_000, read_len=3000, n_reads=1000,
+# err=0.12, engine="sorted", seed=120) of the JAX package on the CPU
+# (PERF.md section 5); the card must give the same precision and recall
+RECALL_JAX_CPU = dict(precision=0.9996057093289172,
+                      recall=0.9999605569360628, n_predictions=25362,
+                      diag_mae=39.88896339539287)
+BLOCKWISE = dict(genome_len=20_000, read_len=3000, n_reads=24, err=0.12,
+                 seed=0)
+STATS_TOL = dict(rtol=1e-5, atol=1e-6)        # p and s0: card vs CPU
+# phase 14: two-tier protein search (BASELINE.md config 7p,
+# experiments/protein_search.py at full size)
+PROTEIN = dict(B=16384, L=2048, band=100, W=128, go=-11.0, ge=-1.0,
+               seed=11, hom_frac=0.1, sub_rate=0.25, margin=5.0,
+               twin_pairs=256, cpu_pairs=64)
+# dp_ad.cu:222-297, score-only, local: per band cell 6 float adds (H +
+# go, the E and F wrap masks, diag, the lane mask, the tracker drift), 6
+# maxes (E, F, H twice, the local floor, the tracker) and the 2 gap-flag
+# compares; the source tests, the local stop and the tracker's compare
+# run only with directions.
+DP_AD_SCORE_OPS_PER_CELL = 14
 
 
 def fail(msg):
@@ -1051,12 +1114,391 @@ def nway_phase(dev, card):
              secs["blot.stats"]))
 
 
-def main():
+def simulate_reads(seed, genome_len, read_len, n_reads, err):
+    """experiments/overlap_recall.py's reads through the port's host
+    tier (bit-equal to the JAX package's with the same generator):
+    ``(codes, lengths, starts)``."""
     import numpy as np
+
+    from biseqt_tpu_torch.sequence import Alphabet, pack_sequences
+    from biseqt_tpu_torch.stochastics import MutationProcess, rand_seq
+
+    A4 = Alphabet("ACGT")
+    rng = np.random.default_rng(seed)
+    M = MutationProcess(A4, subst_probs=err * 0.6, go_prob=err * 0.2,
+                        ge_prob=err * 0.5, rng=rng)
+    genome = rand_seq(A4, genome_len, rng=rng)
+    reads, starts = [], []
+    for _ in range(n_reads):
+        start = int(rng.integers(0, genome_len - read_len))
+        r, _ = M.mutate(genome[start:start + read_len])
+        reads.append(r)
+        starts.append(start)
+    codes, lens = pack_sequences(reads)
+    return codes, lens, np.asarray(starts)
+
+
+def score_overlaps(np, stats, starts, read_len, wordlen, min_olap,
+                   min_score, min_p):
+    """experiments/overlap_recall.py's accounting (``run``), vectorised:
+    true overlaps of at least ``min_olap`` columns, ambiguous ones
+    (shorter, but longer than two words) left out."""
+    n = len(starts)
+    o = read_len - np.abs(starts[:, None] - starts[None, :])
+    pairs = np.triu(np.ones((n, n), bool), k=1) & ~(
+        (2 * wordlen < o) & (o < min_olap))
+    pred = ((stats["s0"] >= min_score) & (stats["p"] >= min_p)
+            & (stats["olap_len"] >= min_olap // 2))
+    truth = o >= min_olap
+    tp = pairs & pred & truth
+    n_tp = int(tp.sum())
+    n_fp = int((pairs & pred & ~truth).sum())
+    n_fn = int((pairs & ~pred & truth).sum())
+    qq, tt = np.nonzero(tp)
+    d_errs = [abs(int(stats["diag"][q, t]) - (int(starts[t]) - int(starts[q])))
+              for q, t in zip(qq, tt)]
+    return {"precision": n_tp / (n_tp + n_fp) if n_tp + n_fp else None,
+            "recall": n_tp / max(n_tp + n_fn, 1),
+            "n_predictions": n_tp + n_fp,
+            "diag_mae": float(np.mean(d_errs)) if d_errs else None}
+
+
+def stats_equal(np, got, want, exact, what):
+    """Integer statistics exactly, p and s0 within STATS_TOL; returns
+    the largest |d| of p and s0."""
+    host = lambda v: v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+    for k in exact:
+        if not np.array_equal(host(got[k]), host(want[k])):
+            fail("%s: %s differs" % (what, k))
+    err = 0.0
+    for k in ("p", "s0"):
+        g, w = host(got[k]), host(want[k])
+        if not np.allclose(g, w, **STATS_TOL):
+            fail("%s: %s beyond rtol 1e-5, atol 1e-6" % (what, k))
+        err = max(err, float(np.abs(g - w).max(initial=0.0)))
+    return err
+
+
+def overlap_phase(dev, card, recall_reads):
+    """Phase 13: all-vs-all read overlaps (BASELINE config 4) on the
+    card: the sort-join engine at 1000 x 10 kbp (timed; held to its
+    chunked run, to the CPU on 256 reads, and to the pairs
+    ``all_vs_all_overlaps`` returns), the recall config against the JAX
+    package's CPU run, and the blockwise engine on a world-of-one mesh
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import stochastics
+    from biseqt_tpu_torch.ops.allvsall_sorted import (
+        auto_max_run, overlap_stats_sorted, overlap_stats_sorted_chunked)
+    from biseqt_tpu_torch.parallel import all_vs_all_overlaps, make_mesh
+    from biseqt_tpu_torch.parallel.allvsall import overlap_matrix_sharded
+
+    t_phase = time.perf_counter()
+    ov = OVERLAP
+    N, L, w = ov["reads"], ov["read_len"], ov["wordlen"]
+    gen = torch.Generator(device=dev).manual_seed(OVERLAP_SEED)
+    codes_w = stochastics.rand_seq_batch(gen, N, L, device=dev)
+    codes = stochastics.rand_seq_batch(gen, N, L, device=dev)
+    lens = torch.full((N,), L, dtype=torch.int32, device=dev)
+    kw = dict(wordlen=w, n_reads=N, bucket=ov["bucket"], device=dev)
+    max_run = auto_max_run(N, L, w)
+    overlap_stats_sorted(codes_w, lens, **kw)          # warm-up
+    del codes_w
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    t0 = time.perf_counter()
+    stats = overlap_stats_sorted(codes, lens, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    chunked = overlap_stats_sorted_chunked(codes, lens,
+                                           max_chunk=ov["chunk"], **kw)
+    for k in stats:
+        if not torch.equal(chunked[k], stats[k]):
+            fail("the chunked sort-join (max_chunk %d) differs from the"
+                 " unchunked in %s" % (ov["chunk"], k))
+    n = ov["cpu_reads"]
+    sub_kw = dict(kw, n_reads=n)
+    on_card = overlap_stats_sorted(codes[:n], lens[:n], **sub_kw)
+    t0 = time.perf_counter()
+    on_cpu = overlap_stats_sorted(codes[:n].cpu(), lens[:n].cpu(),
+                                  **dict(sub_kw, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    cpu_err = stats_equal(np, on_card, on_cpu, ("window", "diag",
+                                                "olap_len"),
+                          "sort-join on %d reads, card vs CPU" % n)
+    host = {k: v.cpu().numpy() for k, v in stats.items()}
+    thresholds = dict(min_score=25.0, min_p=0.5, min_olap_len=0)
+    pairs = all_vs_all_overlaps(codes, lens, wordlen=w, method="sorted",
+                                bucket=ov["bucket"], device=dev,
+                                **thresholds)
+    mask = ((host["s0"] >= 25.0) & (host["p"] >= 0.5)
+            & np.triu(np.ones((N, N), bool), k=1))
+    if [(q, t) for q, t, *_ in pairs] != list(zip(*np.nonzero(mask))):
+        fail("all_vs_all_overlaps' pairs differ from the thresholded stats")
+    print("all-vs-all sort-join (%s): %d reads of %d bp, word %d, bucket"
+          " %d, max_run %d (auto): %.4f s warm, %.0f pair-scores/s; %d"
+          " composites (%.0f MB int32), peak %.2f GB allocated by the call;"
+          " == chunked"
+          " (max_chunk %d) exactly; first %d reads == the CPU (window,"
+          " diag, olap_len exactly, p/s0 max |d| %.3g; the CPU's %.2f s);"
+          " all_vs_all_overlaps: %d pairs == the thresholded stats"
+          % (card, N, L, w, ov["bucket"], max_run, secs, N * N / secs,
+             2 * max_run * N * L, 2 * max_run * N * L * 4 / 1e6, peak / 1e9,
+             ov["chunk"], n, cpu_err, cpu_s, len(pairs)))
+
+    # (b) the recall config
+    rc, sc = RECALL, RECALL_SCORING
+    r_codes, r_lens, starts = recall_reads.get(timeout=300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_stats = overlap_stats_sorted_chunked(
+        r_codes, r_lens, wordlen=sc["wordlen"], n_reads=rc["n_reads"],
+        min_window=sc["min_window"], device=dev)
+    torch.cuda.synchronize()
+    r_secs = time.perf_counter() - t0
+    r_host = {k: v.cpu().numpy() for k, v in r_stats.items()}
+    got = score_overlaps(np, r_host, starts, rc["read_len"], sc["wordlen"],
+                         sc["min_olap"], sc["min_score"], sc["min_p"])
+    for k in ("precision", "recall", "n_predictions"):
+        if got[k] != RECALL_JAX_CPU[k]:
+            fail("recall config: %s %r on the card, %r from the JAX package"
+                 " on the CPU" % (k, got[k], RECALL_JAX_CPU[k]))
+    r_pairs = all_vs_all_overlaps(
+        r_codes, r_lens, wordlen=sc["wordlen"], min_score=sc["min_score"],
+        min_p=sc["min_p"], min_olap_len=sc["min_olap"] // 2,
+        method="sorted", bucket=64, device=dev)
+    r_mask = ((r_host["s0"] >= sc["min_score"]) & (r_host["p"] >= sc["min_p"])
+              & (r_host["olap_len"] >= sc["min_olap"] // 2)
+              & np.triu(np.ones(r_host["p"].shape, bool), k=1))
+    if [(q, t) for q, t, *_ in r_pairs] != list(zip(*np.nonzero(r_mask))):
+        fail("recall config: all_vs_all_overlaps' pairs differ from the"
+             " thresholded stats")
+    print("overlap recall (%s): %d reads of %d bp from a %d bp genome, %.0f%%"
+          " error, word %d: %.4f s on the card; precision %r, recall %r, %d"
+          " predictions, diag MAE %r == the JAX package on the CPU"
+          " (precision %r, recall %r, diag MAE %r); all_vs_all_overlaps: %d"
+          " pairs == the thresholded stats"
+          % (card, rc["n_reads"], rc["read_len"], rc["genome_len"],
+             100 * rc["err"], sc["wordlen"], r_secs, got["precision"],
+             got["recall"], got["n_predictions"], got["diag_mae"],
+             RECALL_JAX_CPU["precision"], RECALL_JAX_CPU["recall"],
+             RECALL_JAX_CPU["diag_mae"], len(r_pairs)))
+
+    # (c) the blockwise engine on a world-of-one mesh
+    bw = BLOCKWISE
+    b_codes, b_lens, b_starts = simulate_reads(
+        bw["seed"], bw["genome_len"], bw["read_len"], bw["n_reads"],
+        bw["err"])
+    mesh = make_mesh(device=dev)
+    t0 = time.perf_counter()
+    b_pairs = all_vs_all_overlaps(b_codes, b_lens, method="blockwise",
+                                  mesh=mesh, device=dev)
+    b_secs = time.perf_counter() - t0
+    cpu_pairs = all_vs_all_overlaps(b_codes, b_lens, method="blockwise",
+                                    mesh=make_mesh(device="cpu"),
+                                    device="cpu")
+    if [p[:3] for p in b_pairs] != [p[:3] for p in cpu_pairs] or not \
+            np.allclose([p[3:] for p in b_pairs], [p[3:] for p in cpu_pairs],
+                        **STATS_TOL):
+        fail("blockwise all_vs_all_overlaps: the card's pairs differ from"
+             " the CPU's")
+    b_card = overlap_matrix_sharded(b_codes, b_lens, mesh=mesh, device=dev)
+    b_cpu = overlap_matrix_sharded(b_codes, b_lens,
+                                   mesh=make_mesh(device="cpu"),
+                                   device="cpu")
+    b_err = stats_equal(np, b_card, b_cpu, ("num_seeds", "diag", "olap_len"),
+                        "blockwise stats, card vs CPU")
+    b_score = score_overlaps(np, b_card, b_starts, bw["read_len"],
+                             sc["wordlen"], sc["min_olap"], sc["min_score"],
+                             sc["min_p"])
+    print("blockwise all-vs-all (%s): %d reads of %d bp, mesh %s: %d pairs"
+          " in %.4f s == the CPU (pairs exactly; stats: integers exactly,"
+          " p/s0 max |d| %.3g); overlap_recall's accounting: precision %r,"
+          " recall %r" % (card, bw["n_reads"], bw["read_len"], mesh,
+                          len(b_pairs), b_secs, b_err,
+                          b_score["precision"], b_score["recall"]))
+    phase_s = time.perf_counter() - t_phase
+    print("phase 13: %.1f s" % phase_s)
+    return {"seconds": secs, "pair_scores_per_s": N * N / secs,
+            "peak_bytes": peak, "recall": got, "recall_seconds": r_secs,
+            "blockwise_seconds": b_secs, "phase_seconds": phase_s}
+
+
+def protein_batch(np, rng, B, L, hom_frac, sub_rate):
+    """experiments/protein_search.py's ``mk_batch``."""
+    ss = rng.integers(0, 20, (B, L), dtype=np.int8)
+    ts = rng.integers(0, 20, (B, L), dtype=np.int8)
+    n_hom = int(B * hom_frac)
+    hom = rng.permutation(B)[:n_hom]
+    ts[hom] = ss[hom]
+    m = rng.random((n_hom, L)) < sub_rate
+    ts[hom] = np.where(
+        m, rng.integers(0, 20, (n_hom, L), dtype=np.int8), ts[hom])
+    is_hom = np.zeros(B, bool)
+    is_hom[hom] = True
+    return ss, ts, is_hom
+
+
+def protein_phase(dev, card):
+    """Phase 14: two-tier protein search (BASELINE config 7p) at
+    experiments/protein_search.py's full size, K1 counted (one launch a
+    tier), the rescore held to a full-only K1 run, K1 to its plain twin
+    at A 6 and A 20, and the call to the CPU on 64 pairs."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch.matrices import (BLOSUM62, DAYHOFF6_GROUPS,
+                                           compression_map, reduced_matrix)
+    from biseqt_tpu_torch.ops import dp_ad
+    from biseqt_tpu_torch.ops.banded_dp import ModeFlags
+    from biseqt_tpu_torch.profiling import (FP32_OPS_PER_S, bound_ms,
+                                            cuda_ms)
+    from biseqt_tpu_torch.protein import (compress_codes, null_threshold,
+                                          two_tier_scores)
+
+    t_phase = time.perf_counter()
+    pc = PROTEIN
+    B, L, BW, W = pc["B"], pc["L"], pc["band"], pc["W"]
+    flags = ModeFlags(local_start=True, local_end=True)
+    lens = np.full((B,), L, np.int32)
+    dmin = np.full((B,), -(BW // 2), np.int32)
+    w_eff = np.full((B,), BW, np.int32)
+    kw = dict(W=W, go=pc["go"], ge=pc["ge"], flags=flags)
+    cells = B * L * BW                      # as the experiment counts them
+    rng = np.random.default_rng(pc["seed"])
+    cmap = compression_map(DAYHOFF6_GROUPS)
+    red = reduced_matrix(BLOSUM62, DAYHOFF6_GROUPS)
+    on = lambda x: torch.as_tensor(x, device=dev)
+    g_lens, g_dmin, g_weff = on(lens), on(dmin), on(w_eff)
+
+    def k1(a, b, mat, rows=slice(None), fn=dp_ad.banded_dp_ad):
+        return fn(a[rows], b[rows], g_lens[rows], g_lens[rows],
+                  g_dmin[rows], subst=mat, w_eff=g_weff[rows], device=dev,
+                  **kw)
+
+    ns, nt, _ = protein_batch(np, rng, B, L, 0.0, pc["sub_rate"])
+    null = k1(on(compress_codes(ns, cmap)), on(compress_codes(nt, cmap)),
+              red)
+    thr = null_threshold(null.score, margin=pc["margin"])
+    ss, ts, is_hom = protein_batch(np, rng, B, L, pc["hom_frac"],
+                                   pc["sub_rate"])
+    two_tier_scores(ss[:8], ts[:8], lens[:8], lens[:8], dmin[:8],
+                    w_eff=w_eff[:8], threshold=thr, device=dev, **kw)
+    torch.cuda.synchronize()
+    dp_ad.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = two_tier_scores(ss, ts, lens, lens, dmin, w_eff=w_eff,
+                          threshold=thr, engine="pallas", device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dp_ad.LAUNCHES
+    if launches != 2:
+        fail("two_tier_scores launched K1 %d times, not once a tier"
+             % launches)
+    g_ss, g_ts = on(ss), on(ts)
+    full = k1(g_ss, g_ts, BLOSUM62)
+    idx = res.survivor_idx
+    full_np = full.score.cpu().numpy()
+    if not np.array_equal(res.full_scores[idx], full_np[idx]):
+        fail("the rescore tier's scores differ from a full-only K1 run")
+    recall = float(res.survivors[is_hom].mean())
+    if recall != 1.0:
+        fail("two-tier homolog recall %r, not 1.0" % recall)
+    frac = float(res.survivors.mean())
+
+    # K1 against its plain twin on the card, at A 6 and A 20
+    g_rs, g_rt = on(compress_codes(ss, cmap)), on(compress_codes(ts, cmap))
+    twin = slice(0, pc["twin_pairs"])
+    twin_ms = {}
+    for A, a, b, mat in ((6, g_rs, g_rt, red), (20, g_ss, g_ts, BLOSUM62)):
+        t0 = time.perf_counter()
+        want = k1(a, b, mat, twin, dp_ad.banded_dp_ad_reference)
+        torch.cuda.synchronize()
+        twin_ms[A] = (time.perf_counter() - t0) * 1e3
+        got = k1(a, b, mat, twin)
+        if not torch.equal(got.score, want.score):
+            fail("K1 differs from its plain twin on %d protein pairs at A %d"
+                 % (pc["twin_pairs"], A))
+    # the call on the card against the CPU
+    c = pc["cpu_pairs"]
+    small = (ss[:c], ts[:c], lens[:c], lens[:c], dmin[:c])
+    c_card = two_tier_scores(*small, w_eff=w_eff[:c], threshold=thr,
+                             device=dev, **kw)
+    t0 = time.perf_counter()
+    c_cpu = two_tier_scores(*small, w_eff=w_eff[:c], threshold=thr,
+                            device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    for name in ("reduced_scores", "survivors", "survivor_idx",
+                 "full_scores"):
+        if not np.array_equal(getattr(c_card, name), getattr(c_cpu, name)):
+            fail("two_tier_scores on %d pairs: %s differs between the card"
+                 " and the CPU" % (c, name))
+
+    # times by CUDA events: the filter, the rescore on the survivors,
+    # and the full-only run
+    rows = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    filter_ms = cuda_ms(lambda: k1(g_rs, g_rt, red), 3)
+    rescore_ms = cuda_ms(lambda: k1(g_ss, g_ts, BLOSUM62, rows), 3)
+    full_ms = cuda_ms(lambda: k1(g_ss, g_ts, BLOSUM62), 3)
+    # K1 score-only reads the codes, lengths, band and table once and
+    # writes the scores once
+    work = (nbytes(g_ss, g_ts, g_lens, g_lens, g_dmin, g_weff, full.score)
+            + 20 * 20 * 4, DP_AD_SCORE_OPS_PER_CELL * cells)
+    bound, bound_by = bound_ms(*work, FP32_OPS_PER_S)
+    eff = cells / ((filter_ms + rescore_ms) / 1e3) / 1e9
+    full_gcups = cells / (full_ms / 1e3) / 1e9
+    print("two-tier protein search (%s): %d pairs of %d residues, band %d"
+          " (W %d), Dayhoff-6 filter at threshold %.1f, BLOSUM62 rescore;"
+          " %d K1 launches; call %.4f s; survivors %d (%.4f), homolog"
+          " recall %.1f, rescore == full-only K1 exactly; K1 == twin on %d"
+          " pairs at A 6 and A 20 (twin %.0f / %.0f ms); %d pairs == the"
+          " CPU (the CPU's %.2f s)"
+          % (card, B, L, BW, W, thr, launches, wall, idx.size, frac, recall,
+             pc["twin_pairs"], twin_ms[6], twin_ms[20], c, cpu_s))
+    print("two-tier K1 times (CUDA events): filter %.3f ms, rescore %.3f ms"
+          " (%d pairs), full-only %.3f ms; effective %.1f GCUPS, full-only"
+          " %.1f GCUPS (cells = B * L * %d); K1 bound at this shape %.4f ms"
+          " (%s; %.1f MB, %.2f G operations)"
+          % (filter_ms, rescore_ms, idx.size, full_ms, eff, full_gcups, BW,
+             bound, bound_by, work[0] / 1e6, work[1] / 1e9))
+    phase_s = time.perf_counter() - t_phase
+    print("phase 14: %.1f s" % phase_s)
+    return {"launches": launches, "filter_ms": filter_ms,
+            "rescore_ms": rescore_ms, "full_only_ms": full_ms,
+            "bound_ms": bound, "bound_by": bound_by, "call_s": wall,
+            "survivor_frac": frac, "effective_gcups": eff,
+            "full_only_gcups": full_gcups, "twin_ms": twin_ms,
+            "phase_seconds": phase_s}
+
+
+def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a card")
+    import biseqt_tpu_torch  # noqa: F401  (outside the repository: fails)
+
+    # phase 13's recall reads come from the host's sequential mutation
+    # model (~50 s): simulated in a worker process while phases 1-12 run
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        recall_reads = pool.apply_async(simulate_reads, (
+            RECALL["seed"], RECALL["genome_len"], RECALL["read_len"],
+            RECALL["n_reads"], RECALL["err"]))
+        run(recall_reads)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(recall_reads):
+    import numpy as np
+    import torch
+
     from biseqt_tpu_torch import _build, native
     from biseqt_tpu_torch import pipeline, pw
     from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
@@ -1633,6 +2075,12 @@ def main():
     # -- 12. N-way homology ----------------------------------------------
     nway_phase(dev, card)
 
+    # -- 13. all-vs-all read overlaps ------------------------------------
+    overlap_phase(dev, card, recall_reads)
+
+    # -- 14. two-tier protein search, counted ----------------------------
+    protein = protein_phase(dev, card)
+
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
@@ -1643,9 +2091,14 @@ def main():
          "launches_by_path": {"extend_segments": counts["dp_ad"],
                               "discover_and_extend":
                                   genome["launches"]["dp_ad"],
-                              "map_reads": mapping["launches"]["dp_ad"]},
+                              "map_reads": mapping["launches"]["dp_ad"],
+                              "two_tier_protein": protein["launches"]},
          "discover_and_extend": genome["dp_ad"],
-         "map_reads": mapping["dp_ad"]},
+         "map_reads": mapping["dp_ad"],
+         "two_tier_protein": {
+             k: protein[k] for k in ("filter_ms", "rescore_ms",
+                                     "full_only_ms", "bound_ms", "bound_by",
+                                     "twin_ms")}},
         {"name": "walk", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/walk.cu",
          "replaces": "biseqt_tpu/ops/pallas_walk.py:512",

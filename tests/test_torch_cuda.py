@@ -758,3 +758,113 @@ def test_wide_words_card_match_cpu(rng, card):
         assert len(seeds) > 2000
         assert seeds.seeds() == SeedIndexMultiple(
             *seqs, wordlen=wordlen, device="cpu").seeds()
+
+
+# ---------------------------------------------------------------------------
+# all-vs-all overlaps, the batch tier and two-tier protein search
+# ---------------------------------------------------------------------------
+
+def _tiled_reads(rng, n_reads, glen, rlen, err=0.12):
+    from biseqt_tpu_torch.sequence import pack_sequences
+    from biseqt_tpu_torch.stochastics import MutationProcess, rand_seq
+
+    A4 = Alphabet("ACGT")
+    M = MutationProcess(A4, subst_probs=err * 0.6, go_prob=err * 0.2,
+                        ge_prob=err * 0.5, rng=rng)
+    genome = rand_seq(A4, glen, rng=rng)
+    reads = [M.mutate(genome[s:s + rlen])[0]
+             for s in rng.integers(0, glen - rlen, n_reads)]
+    return pack_sequences(reads)
+
+
+def _assert_stats_card_equals_cpu(got, want, exact):
+    for k in exact:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k in ("p", "s0"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("max_chunk", [None, 7])
+def test_sorted_allvsall_card_matches_cpu(rng, card, max_chunk):
+    """The sort-join engine (one window, and chunked windows with a
+    shifted last one) on the card equals the CPU: window, diag and
+    olap_len exactly, p and s0 within rtol 1e-5, atol 1e-6."""
+    from biseqt_tpu_torch.ops.allvsall_sorted import (
+        overlap_stats_sorted_chunked)
+
+    codes, lens = _tiled_reads(rng, 40, 20_000, 3000)
+    kw = dict(wordlen=8, n_reads=40, bucket=32, max_chunk=max_chunk)
+    got = overlap_stats_sorted_chunked(codes, lens, device=card, **kw)
+    want = overlap_stats_sorted_chunked(codes, lens, device="cpu", **kw)
+    assert all(v.device == card for v in got.values())
+    _assert_stats_card_equals_cpu(got, want, ("window", "diag", "olap_len"))
+
+
+def test_blockwise_allvsall_card_matches_cpu(rng, card):
+    from biseqt_tpu_torch.parallel import all_vs_all_overlaps, make_mesh
+    from biseqt_tpu_torch.parallel.allvsall import overlap_stats_block
+
+    codes, lens = _tiled_reads(rng, 24, 20_000, 3000)
+    got = overlap_stats_block(codes, lens, codes, lens, wordlen=8,
+                              device=card)
+    want = overlap_stats_block(codes, lens, codes, lens, wordlen=8,
+                               device="cpu")
+    _assert_stats_card_equals_cpu(got, want, ("num_seeds", "diag",
+                                              "olap_len"))
+    pairs = lambda device: [p[:3] for p in all_vs_all_overlaps(
+        codes, lens, method="blockwise", mesh=make_mesh(device=device),
+        device=device)]
+    assert pairs(card) == pairs("cpu")
+
+
+def test_batch_mutations_card_match_cpu(card):
+    """The materialisation on the card equals the CPU's on the same
+    draws; the draws come from a generator on the card."""
+    from biseqt_tpu_torch import stochastics
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    codes = stochastics.rand_seq_batch(gen, 16, 3000, device=card)
+    lens = torch.full((16,), 3000, dtype=torch.int32, device=card)
+    draws = stochastics.batch_mutation_draws(gen, 16, 3000, 0.1, 0.05, 0.3,
+                                             device=card)
+    got = stochastics.apply_batch_mutations(codes, lens, draws, 0.3,
+                                            device=card)
+    want = stochastics.apply_batch_mutations(
+        codes.cpu(), lens.cpu(), {k: v.cpu() for k, v in draws.items()},
+        0.3, device="cpu")
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    with pytest.raises(ValueError, match="generator"):
+        stochastics.rand_seq_batch(torch.Generator(), 2, 10, device=card)
+
+
+@pytest.mark.parametrize("threshold", [40.0, 1e9])
+def test_two_tier_card_matches_cpu(rng, card, threshold):
+    """``two_tier_scores`` with K1 on the card (the filter at A 6, the
+    rescore at A 20) equals K1's plain twin on the CPU exactly, and
+    launches K1 once a tier."""
+    from biseqt_tpu_torch.protein import two_tier_scores
+
+    B, L = 64, 512
+    ss = rng.integers(0, 20, (B, L)).astype(np.int8)
+    ts = rng.integers(0, 20, (B, L)).astype(np.int8)
+    hom = rng.random((B // 4, L)) < 0.75
+    ts[:B // 4] = np.where(hom, ss[:B // 4], ts[:B // 4])
+    lens = np.full((B,), L, np.int32)
+    kw = dict(W=128, go=-11.0, ge=-1.0, w_eff=np.full((B,), 100, np.int32),
+              flags=ModeFlags(local_start=True, local_end=True),
+              threshold=threshold, engine="pallas")
+    dmin = np.full((B,), -50, np.int32)
+    before = dp_ad.LAUNCHES
+    got = two_tier_scores(ss, ts, lens, lens, dmin, device=card, **kw)
+    launches = dp_ad.LAUNCHES - before
+    want = two_tier_scores(ss, ts, lens, lens, dmin, device="cpu", **kw)
+    for name in ("reduced_scores", "survivors", "survivor_idx",
+                 "full_scores"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    if threshold < 1e9:
+        assert got.survivors[:B // 4].all() and launches == 2
+        assert torch.equal(got.full.score.cpu(), want.full.score)
+    else:
+        assert got.full is None and launches == 1

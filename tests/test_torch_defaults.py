@@ -14,16 +14,19 @@ own sources.
 import ast
 import inspect
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import (blot, kmers, native, pipeline, pw, seeds,
-                              stochastics)
+from biseqt_tpu_torch import (blot, kmers, native, pipeline, protein, pw,
+                              seeds, stochastics)
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
-from biseqt_tpu_torch.ops import (banded_dp, blot_stats, dp_ad, dp_row,
-                                  tables, walk)
+from biseqt_tpu_torch.ops import (allvsall_sorted, banded_dp, blot_stats,
+                                  dp_ad, dp_row, tables, walk)
+from biseqt_tpu_torch.parallel import allvsall, mesh
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,8 +201,56 @@ _NULL_MODEL_CALLS = {
     "normal_neg_log_pvalue": lambda **kw: stochastics.normal_neg_log_pvalue(
         [25.0, 0.0], [4.3, 0.0], [40.0, 1.0], **kw),
 }
+_READS = np.random.default_rng(8).integers(0, 4, (4, 60)).astype(np.int8)
+_READ_LENS = np.asarray([60, 60, 50, 40], np.int32)
+_PROTEIN = np.random.default_rng(9).integers(0, 20, (2, 40)).astype(np.int8)
+_BATCH_CALLS = {
+    "rand_seq_batch": lambda **kw: stochastics.rand_seq_batch(
+        torch.Generator(), 2, 10, **kw),
+    "mutate_batch": lambda **kw: stochastics.mutate_batch(
+        torch.Generator(), _CODES, _LENS, 0.1, 0.05, 0.2, **kw),
+    "batch_mutation_draws": lambda **kw: stochastics.batch_mutation_draws(
+        torch.Generator(), 2, 30, 0.1, 0.05, 0.2, **kw),
+    "apply_batch_mutations": lambda **kw: stochastics.apply_batch_mutations(
+        _CODES, _LENS, stochastics.batch_mutation_draws(
+            torch.Generator(), 2, 30, 0.1, 0.05, 0.2, device="cpu"), 0.2,
+        **kw),
+}
+_OVERLAP_CALLS = {
+    "overlap_stats_sorted": (allvsall_sorted, lambda **kw:
+                             allvsall_sorted.overlap_stats_sorted(
+                                 _READS, _READ_LENS, wordlen=4, n_reads=4,
+                                 **kw)),
+    "overlap_stats_sorted_chunked": (
+        allvsall_sorted, lambda **kw:
+        allvsall_sorted.overlap_stats_sorted_chunked(
+            _READS, _READ_LENS, wordlen=4, n_reads=4, max_chunk=3, **kw)),
+    "make_mesh": (mesh, lambda **kw: mesh.make_mesh(**kw)),
+    "overlap_stats_block": (allvsall, lambda **kw:
+                            allvsall.overlap_stats_block(
+                                _READS, _READ_LENS, _READS, _READ_LENS,
+                                wordlen=4, **kw)),
+    "overlap_matrix_sharded": (allvsall, lambda **kw:
+                               allvsall.overlap_matrix_sharded(
+                                   _READS, _READ_LENS, wordlen=4, **kw)),
+    "overlap_matrix_sorted_sharded": (
+        allvsall, lambda **kw: allvsall.overlap_matrix_sorted_sharded(
+            _READS, _READ_LENS, wordlen=4, **kw)),
+    "all_vs_all_overlaps": (allvsall, lambda **kw:
+                            allvsall.all_vs_all_overlaps(
+                                _READS, _READ_LENS, wordlen=4, **kw)),
+    "two_tier_scores": (protein, lambda **kw: protein.two_tier_scores(
+        _PROTEIN, _PROTEIN, [40, 40], [40, 40], [-8, -8], W=128,
+        go=-11.0, ge=-1.0, w_eff=[17, 17], threshold=10.0,
+        flags=banded_dp.ModeFlags(local_start=True, local_end=True),
+        **kw)),
+}
 ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
                      for name, call in _NULL_MODEL_CALLS.items()})
+ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
+                     for name, call in _BATCH_CALLS.items()})
+ENTRY_POINTS.update({name: (getattr(module, name), call)
+                     for name, (module, call) in _OVERLAP_CALLS.items()})
 ENTRY_POINTS.update({name: (getattr(tables, name), call)
                      for name, call in _TABLE_CALLS.items()})
 ENTRY_POINTS.update({name: (getattr(blot_stats, name), call)
@@ -268,3 +319,50 @@ def test_port_names_no_path_of_the_jax_package():
     walked = {os.path.relpath(path, PORT) for path in _port_modules()}
     assert {"utils.py", "kmers.py", "database.py", "blot.py",
             "seeds.py"} <= walked and len(walked) >= 25
+
+
+_IMPORT_EVERY_MODULE_WITHOUT_JAX = r"""
+import importlib, importlib.abc, os, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "biseqt_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "biseqt_tpu"):
+        del sys.modules[name]
+sys.meta_path.insert(0, Refuse())
+names = []
+for root, _, files in os.walk("biseqt_tpu_torch"):
+    for f in sorted(files):
+        if f.endswith(".py"):
+            mod = os.path.join(root, f)[:-3].replace(os.sep, ".")
+            names.append(mod[:-len(".__init__")] if mod.endswith(
+                ".__init__") else mod)
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "biseqt_tpu")]
+assert not bad, bad
+print(len(names), "ok")
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    """Every module of the port (the all-vs-all, mesh and protein modules
+    and the batch tier included) imports in an interpreter that refuses
+    jax and the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c",
+                          _IMPORT_EVERY_MODULE_WITHOUT_JAX], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    count, ok = out.stdout.split()
+    assert ok == "ok" and int(count) >= 30
+    for module in ("protein", "parallel.mesh", "parallel.allvsall",
+                   "ops.allvsall_sorted"):
+        assert os.path.exists(os.path.join(
+            PORT, module.replace(".", os.sep) + ".py"))

@@ -1,10 +1,14 @@
 """The port's measurement helpers (biseqt_tpu_torch.profiling) that need
-no card: the step-loop count of ``cuobjdump -sass`` output and the
-bound of a kernel."""
+no card: the step-loop count of ``cuobjdump -sass`` output, the bound
+of a kernel and the profiler trace context."""
+
+import json
+import os
 
 import pytest
+import torch
 
-from biseqt_tpu_torch.profiling import bound_ms, sass_step_loop
+from biseqt_tpu_torch.profiling import bound_ms, sass_step_loop, trace
 
 # cuobjdump -sass as it prints two kernels: branch targets as addresses
 # (CUDA 12) or as labels, an encoding line after each instruction, a
@@ -94,3 +98,23 @@ def test_bound_ms_takes_the_larger_bound():
     assert bound_ms(3.35e9, 1.0, 1e12) == pytest.approx((1.0, "bytes"))
     ms, kind = bound_ms(1.0, 33.5e9, 33.5e12)
     assert kind == "operations" and ms == pytest.approx(1.0)
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """With a directory the block is traced into one Chrome trace there
+    (the block's operators among its events); without one it is a
+    no-op that writes nothing."""
+    log_dir = tmp_path / "profile"
+    with trace(str(log_dir)) as prof:
+        torch.arange(1000).sum()
+    assert prof is not None
+    files = os.listdir(log_dir)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    with open(log_dir / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "aten::sum" for e in events)
+    for off in (None, ""):
+        with trace(off) as prof:
+            torch.ones(3).sum()
+        assert prof is None
+    assert os.listdir(tmp_path) == ["profile"]

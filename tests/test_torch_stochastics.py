@@ -119,3 +119,141 @@ def test_normal_neg_log_pvalue_matches():
     assert np.isinf(want[zero & (x > mu)]).all()
     assert (want[zero & (x <= mu)] == 0).all()
     _close(got, want, "neg log p-value")
+
+
+# ---------------------------------------------------------------------------
+# the batch tier: the materialisation on the JAX package's draws, exactly;
+# the port's own draws against the model's rates
+# ---------------------------------------------------------------------------
+
+def _jax_draws(key, B, L, subst_prob, go, ge, alphabet_len=4):
+    """The draws ``biseqt_tpu.stochastics.mutate_batch`` makes from
+    ``key``: the same split keys, calls and shapes."""
+    import jax
+    import jax.numpy as jnp
+
+    cap = port.batch_capacity(L)
+    k1, k2, k3, k4, k5, k6 = jax.random.split(key, 6)
+    half_go = float(go) / 2.0
+    del_rate = min(half_go / max(1.0 - float(ge), 1e-6), 0.49)
+    uniform = lambda k: np.asarray(jax.random.uniform(k, (B, L)))
+    return {
+        "err": uniform(k1) < subst_prob,
+        "shift": np.asarray(jax.random.randint(k2, (B, L), 1,
+                                               alphabet_len)),
+        "deleted": uniform(k3) < del_rate,
+        "ins_open": uniform(k4) < half_go,
+        "u": np.asarray(jax.random.uniform(k5, (B, L), minval=1e-7,
+                                           maxval=1.0)),
+        "ins_codes": np.asarray(jax.random.randint(
+            k6, (B, cap), 0, alphabet_len, dtype=jnp.int32)),
+    }
+
+
+@pytest.mark.parametrize("subst,go,ge,max_ins_run,alphabet_len", [
+    (0.2, 0.1, 0.2, 8, 4), (0.0, 0.0, 0.0, 8, 4),
+    (0.072, 0.024, 0.06, 8, 4), (0.1, 0.3, 0.7, 3, 4),
+    (0.25, 0.05, 0.3, 8, 20), (0.1, 0.9, 0.0, 8, 4)])
+def test_mutate_batch_materialisation_equals_jax(subst, go, ge, max_ins_run,
+                                                 alphabet_len):
+    """Given the JAX package's draws, the port's materialisation gives
+    ``biseqt_tpu.stochastics.mutate_batch``'s codes and lengths exactly
+    (ragged rows with PAD tails in the input)."""
+    import jax
+    import jax.numpy as jnp
+
+    B, L = 16, 1500
+    codes = np.array(ref.rand_seq_batch(jax.random.PRNGKey(0), B, L,
+                                        alphabet_len))
+    lens = np.random.default_rng(1).integers(L // 2, L + 1, B).astype(
+        np.int32)
+    lens[0] = L
+    codes[np.arange(L)[None, :] >= lens[:, None]] = -1
+    key = jax.random.PRNGKey(5)
+    want_codes, want_lens = ref.mutate_batch(
+        key, jnp.asarray(codes), jnp.asarray(lens), subst, go, ge,
+        alphabet_len=alphabet_len, max_ins_run=max_ins_run)
+    got_codes, got_lens = port.apply_batch_mutations(
+        codes, lens, _jax_draws(key, B, L, subst, go, ge, alphabet_len), ge,
+        alphabet_len, max_ins_run, device="cpu")
+    assert got_codes.dtype == torch.int8 and got_lens.dtype == torch.int32
+    assert np.array_equal(got_codes.numpy(), np.asarray(want_codes))
+    assert np.array_equal(got_lens.numpy(), np.asarray(want_lens))
+
+
+def _within_3_sigma(hits, n, p, what):
+    sigma = np.sqrt(n * p * (1 - p))
+    print("%s: %d of %d, expected %.1f +- %.1f" % (what, hits, n, n * p,
+                                                  sigma))
+    assert abs(hits - n * p) <= 3 * sigma, what
+
+
+def test_device_tier_batch_sim_on_the_ports_draws():
+    """``tests/test_stochastics.py``'s batch-tier case through the port:
+    uniform letters, lengths near L, exact PAD tails, mutations present,
+    the identity at zero rates."""
+    B, L = 16, 2000
+    gen = torch.Generator().manual_seed(0)
+    codes = port.rand_seq_batch(gen, B, L, device="cpu")
+    assert codes.dtype == torch.int8 and codes.shape == (B, L)
+    counts = np.bincount(codes.numpy().ravel() % 4, minlength=4)
+    assert counts.min() > B * L / 4 * 0.9
+    lengths = torch.full((B,), L, dtype=torch.int32)
+    mut, mlen = port.mutate_batch(gen, codes, lengths, subst_prob=0.2,
+                                  go_prob=0.1, ge_prob=0.2, device="cpu")
+    mut_np, mlen_np = mut.numpy(), mlen.numpy()
+    assert mut.shape == (B, port.batch_capacity(L))
+    assert (np.abs(mlen_np - L) < 0.2 * L).all()
+    for b in range(B):
+        assert (mut_np[b, mlen_np[b]:] == -1).all()
+        assert (mut_np[b, :mlen_np[b]] >= 0).all()
+    assert (codes.numpy() == mut_np[:, :L]).mean() < 0.9
+    mut0, mlen0 = port.mutate_batch(gen, codes, lengths, 0.0, 0.0, 0.0,
+                                    device="cpu")
+    assert (mlen0.numpy() == L).all()
+    assert (mut0.numpy()[:, :L] == codes.numpy()).all()
+    assert (mut0.numpy()[:, L:] == -1).all()
+
+
+def test_batch_tier_marginals_within_three_sigma():
+    """The port's draws against the model's rates: substitutions (seen in
+    the mutant, no indels), deletions at ``(go/2)/(1-ge)``, insertion
+    opens at go/2, and letters at ``p``, each within 3 sigma."""
+    B, L = 32, 4000
+    gen = torch.Generator().manual_seed(11)
+    codes = port.rand_seq_batch(gen, B, L, device="cpu")
+    lengths = torch.full((B,), L, dtype=torch.int32)
+    mut, _ = port.mutate_batch(gen, codes, lengths, 0.15, 0.0, 0.0,
+                               device="cpu")
+    diff = int((mut[:, :L] != codes).sum())
+    _within_3_sigma(diff, B * L, 0.15, "substitutions")
+    go, ge = 0.05, 0.3
+    draws = port.batch_mutation_draws(gen, B, L, 0.0, go, ge, device="cpu")
+    _within_3_sigma(int(draws["deleted"].sum()), B * L,
+                    (go / 2) / (1 - ge), "deletions")
+    _within_3_sigma(int(draws["ins_open"].sum()), B * L, go / 2,
+                    "insertion opens")
+    assert draws["u"].min() >= 1e-7 and draws["u"].max() < 1.0
+    p = [0.1, 0.2, 0.3, 0.4]
+    biased = port.rand_seq_batch(gen, 8, 5000, p=p, device="cpu")
+    for letter, q in enumerate(p):
+        _within_3_sigma(int((biased == letter).sum()), 8 * 5000, q,
+                        "letter %d" % letter)
+
+
+def test_batch_tier_one_seed_one_output():
+    def run(seed):
+        gen = torch.Generator().manual_seed(seed)
+        codes = port.rand_seq_batch(gen, 4, 300, device="cpu")
+        return port.mutate_batch(gen, codes, np.full(4, 300, np.int32), 0.1,
+                                 0.05, 0.2, device="cpu")
+    (a, la), (b, lb), (c, _) = run(7), run(7), run(8)
+    assert torch.equal(a, b) and torch.equal(la, lb)
+    assert not torch.equal(a, c)
+
+
+def test_batch_tier_generator_must_live_on_the_outputs_device():
+    gen = torch.Generator()
+    with pytest.raises(ValueError, match="generator"):
+        port._check_generator(gen, torch.device("cuda", 0))
+    port._check_generator(gen, torch.device("cpu"))
