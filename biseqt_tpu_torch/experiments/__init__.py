@@ -1,6 +1,6 @@
 """The port's counterparts of the JAX package's ``experiments/`` scripts.
 
-So far the two probes that launch a TPU kernel of their own, each with a
+The two probes that launch a kernel of their own, each with a
 hand-written CUDA kernel for Hopper, its plain PyTorch version and a
 ``main()`` that runs the probe on the card:
 
@@ -9,6 +9,25 @@ hand-written CUDA kernel for Hopper, its plain PyTorch version and a
 * :mod:`.i16_probe` (``experiments/mosaic_i16_probe.py``): ten int16 ops
   done the way a 16-bit DP would do them, two per 32-bit register.
 
+The user-facing experiments, one module per JAX script with its
+functions' names, arguments, defaults, printed lines and dump-row keys
+(so :mod:`.figures` renders either package's dumps), each computing on
+``device`` (the card unless a caller asks for the CPU):
+
+* :mod:`.band_radius_stats`: the band-radius model's containment (host);
+* :mod:`.wordblot_recall`: Word-Blot recall@k over a p_min sweep;
+* :mod:`.multiple_homology`: N-way homology on 10 x ~100 kbp;
+* :mod:`.fixed_ref_bench`: reads mapped to a 5 Mbp reference;
+* :mod:`.ingest_bench`: a 5 Mbp FASTA into the DB (host);
+* :mod:`.index_build_bench`: the k-mer table and all-vs-all statistics
+  of 1000 x 10 kbp reads;
+* :mod:`.genome_homology`: discovery and extension on a rearranged
+  genome pair, with transcripts through the DP and walk kernels;
+* :mod:`.overlap_recall`: all-vs-all overlap precision and recall;
+* :mod:`.protein_search`: two-tier protein search on the DP kernel;
+* :mod:`.figures` and :mod:`.util`: the plots and the helpers.
+
     python -m biseqt_tpu_torch.experiments.transpose_probe
-    python -m biseqt_tpu_torch.experiments.i16_probe
+    python -m biseqt_tpu_torch.experiments.genome_homology --transcripts
+    python -m biseqt_tpu_torch.experiments.wordblot_recall --quick
 """

@@ -85,6 +85,11 @@ def on_device(x, dtype, device: torch.device) -> torch.Tensor:
                              % (x.device, device))
         return x.to(dtype)
     x = np.asarray(x)
+    if device.type == "cuda":
+        # through pinned memory, not waited for: a copy from pageable
+        # memory would first wait for all the work queued on the card
+        return torch.from_numpy(np.array(x, order="C")).pin_memory().to(
+            device, non_blocking=True).to(dtype)
     if not x.flags.writeable:     # a Sequence's frozen codes
         x = x.copy()
     return torch.as_tensor(x, device=device).to(dtype)

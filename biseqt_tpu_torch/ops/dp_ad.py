@@ -122,6 +122,15 @@ def _subst_table(subst, gd: float):
     return table, np.float32(-1.0 + 2.0 * gd)
 
 
+def _extent(x):
+    """``(min, max)`` of ``x`` as ints: on the host for a numpy array or
+    list, on its device (a wait for it) for a tensor."""
+    if isinstance(x, torch.Tensor):
+        return (int(x.min()), int(x.max())) if x.numel() else (0, 0)
+    x = np.asarray(x)
+    return (int(x.min()), int(x.max())) if x.size else (0, 0)
+
+
 def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
               go, ge, r_chunk, device):
     """Pad the batch to whole plane rows and derive the per-pair lane
@@ -133,6 +142,10 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
         raise ValueError("the kernel requires nonpositive gap scores")
     if r_chunk < 2 or r_chunk % 2:
         raise ValueError("r_chunk must be a positive even number")
+    # checked before the copy: numpy inputs on the host, so that a launch
+    # from host arrays waits for no earlier work on the card
+    lens_lo, lens_hi = zip(*map(_extent, (s_lens, t_lens)))
+    code_hi = max(_extent(s_codes)[1], _extent(t_codes)[1])
     s_codes = on_device(s_codes, torch.int8, device)
     t_codes = on_device(t_codes, torch.int8, device)
     B, LS = s_codes.shape
@@ -144,8 +157,7 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
     if w_eff is None:
         w_eff = torch.full((B,), W - 1, dtype=torch.int32, device=device)
     w_eff = i32(w_eff).clamp(max=W - 1)
-    if B and (int(s_lens.min()) < 0 or int(s_lens.max()) > LS
-              or int(t_lens.min()) < 0 or int(t_lens.max()) > LT):
+    if B and (min(lens_lo) < 0 or lens_hi[0] > LS or lens_hi[1] > LT):
         raise ValueError("sequence lengths outside [0, LS] / [0, LT]")
 
     B2 = (B + 1) // 2
@@ -174,7 +186,7 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
         raise ValueError("alphabets above %d letters are not supported"
                          % MAX_A)
     # the kernel indexes its shared-memory table with the codes
-    if B and (int(s_codes.max()) >= A or int(t_codes.max()) >= A):
+    if B and code_hi >= A:
         raise ValueError("letter codes must lie below the alphabet size %d"
                          % A)
     Apad = _round_up(LS + LT + 2, r_chunk)
@@ -184,7 +196,7 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
         s_lens_in=s_lens, t_lens_in=t_lens,
         s_lens=s_lens_p.contiguous(), t_lens=t_lens_p.contiguous(),
         dminq=dminq.contiguous(), lo=lo.contiguous(), hi=hi.contiguous(),
-        table=torch.as_tensor(table, device=device), pad_sub=pad_sub,
+        table=on_device(table, torch.float32, device), pad_sub=pad_sub,
         gd=gd, go=np.float32(go), two_gd=np.float32(2.0 * gd),
         rgd=np.float32(r_chunk * gd),
         undrift_a=np.float32(gd * (Apad - 2)),
@@ -397,7 +409,6 @@ def _finish(g, Ma, Mb, Aa, Ab, dirs, flags: ModeFlags, with_dirs: bool):
     dev = Ma.device
     B, B2, W = g["B"], g["B2"], g["W"]
     even_k = (torch.arange(W, device=dev) % 2) == 0
-    NEGT = torch.tensor(_NEGF, device=dev)
     # pair p's slots have (a + k) ≡ p: the even-step maxima hold pair 0
     # on even lanes and pair 1 on odd lanes, the odd-step maxima the
     # reverse

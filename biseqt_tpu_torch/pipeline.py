@@ -16,11 +16,16 @@ Launch geometry (window split, cuts, shape buckets, batch padding) is
 the JAX package's, so both packages solve the same problems and their
 results can be compared exactly.  The per-launch cap is the card's
 (:data:`LAUNCH_BYTES`); which pairs share a launch changes no result.
+Launches are kept in flight under :data:`PIPELINE_BYTES`: each is
+dispatched without waiting for the device, and the oldest is finished
+(its results copied to the host, checked and compacted) while later
+ones run, in order, so the output does not depend on the budget.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,7 +39,8 @@ from .profiling import Phase
 
 __all__ = ["extend_segments", "discover_and_extend", "cut_segment",
            "extension_plan", "plan_launches", "launch_inputs", "PAD_RADIUS",
-           "PAD_A", "DIRS_BUDGET"]
+           "PAD_A", "DIRS_BUDGET", "LAUNCH_BYTES", "PIPELINE_BYTES",
+           "launch_bytes"]
 
 # default growth of a segment's rectangle: discovery quantizes to coarse
 # cells, and the alignment must be free to extend past the seed core
@@ -54,6 +60,17 @@ LAUNCH_BYTES = 8 << 30
 # Bytes of direction plane one transcript row may fill: a longer
 # segment is split into overlapping a-windows (the JAX package's budget)
 DIRS_BUDGET = 512 << 20
+# Bytes the launches dispatched but not yet finished may count together
+# (:func:`launch_bytes`: codes and dirs plane), as the JAX package keeps
+# launches in flight under its PIPELINE_BYTES (3 GiB, a TPU's budget):
+# while they run, the host copies and compacts the oldest launch's
+# results.  Two full launches (2 x LAUNCH_BYTES) may be in flight, so a
+# plan of 8 GiB launches still overlaps one launch's host work with the
+# next one's kernels; with the launch being dispatched that is at most
+# 24 GiB of the card's 80 GB, and on the host-walk route (each plane
+# copied whole to pinned host memory) 16 GiB of the host's.  0 finishes
+# every launch before the next is dispatched (the serial order).
+PIPELINE_BYTES = 2 * LAUNCH_BYTES
 
 
 def _bucket(n, mini=128):
@@ -212,30 +229,96 @@ def _engine_device(use_pallas, device):
     return device
 
 
-def _walk_on_device(res, x, n, W, flags, device):
-    """Transcripts of a launch's first ``n`` pairs by the walk kernel on
-    the device over K1's result ``res``, compacted by the C++ tier."""
-    # padding pairs are skipped by the walk (-1 end cells)
-    real = torch.arange(len(x["dmin"]), device=device) < n
-    ei = torch.where(real, res.end_i, -1)
-    ej = torch.where(real, res.end_j, -1)
-    dminq = torch.from_numpy(x["dminq"]).to(device)
-    trace, fi, fj = traceback_walk(res.dirs, dminq, ei, ej, W=W,
-                                   device=device)
-    # every walk must move from its end cell to its start cell by its
-    # trace's ops: checked on the device, copied with the cursors in one
-    # transfer
-    di, dj = trace_moves(trace, len(ei))
-    bad = ((ei - fi) != di) | ((ej - fj) != dj)
-    fi, fj, di, dj, bad = torch.stack(
-        [fi, fj, di, dj, bad.to(torch.int32)]).cpu().numpy()
-    if bad.any():
-        raise RuntimeError(
-            "the walk's trace does not lead from the end cells to its"
-            " final cursors for pairs %s" % np.nonzero(bad)[0][:8].tolist())
-    return native.compact_sweep_ops_t(
-        trace.cpu().numpy(), fi, fj, x["s_codes"][:n], x["t_codes"][:n],
-        x["s_lens"][:n], x["t_lens"][:n], flags, moves=(di[:n], dj[:n]))
+def launch_bytes(n, LS, LT, W, with_transcripts: bool, r_chunk: int = 128):
+    """The bytes a launch of ``n`` pairs counts against
+    :data:`PIPELINE_BYTES`: its padded codes and, with transcripts, its
+    dirs plane ``[Apad // 2, B2, W]``."""
+    n_pad = _bucket(n, mini=_batch_mini(with_transcripts))
+    est = n_pad * (LS + LT)
+    if with_transcripts:
+        apad = -(-(LS + LT + 2) // r_chunk) * r_chunk
+        est += apad // 2 * ((n_pad + 1) // 2) * W
+    return est
+
+
+def _to_host(x, device):
+    """A host copy of ``x`` started on the current stream and not waited
+    for: a pinned buffer on a card (read it once the launch's event has
+    completed), ``x`` itself on the CPU."""
+    if device.type != "cuda":
+        return x
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return buf.copy_(x, non_blocking=True)
+
+
+class _Launch(NamedTuple):
+    """A dispatched launch: its rows, its inputs, the host copies of its
+    results (ready once ``event`` has completed; ``None`` on the CPU)."""
+    idxs: list
+    x: dict
+    host: list
+    event: Optional[torch.cuda.Event]
+
+
+def _dispatch(idxs, x, W, dp_kw, with_transcripts, device_walk, device):
+    """Queue one launch on the device: K1, then with transcripts either
+    the walk kernel and its replay guard (``device_walk``) or the plane
+    itself, and the copies of what :func:`_finish` reads to pinned host
+    buffers, then an event.  Nothing here waits for the device."""
+    n = len(idxs)
+    res = banded_dp_ad(x["s_codes"], x["t_codes"], x["s_lens"],
+                       x["t_lens"], x["dmin"], W=W, w_eff=x["w_eff"],
+                       with_dirs=with_transcripts, device=device, **dp_kw)
+    host = [res.score[:n]]
+    if with_transcripts and device_walk:
+        # padding pairs are skipped by the walk (-1 end cells)
+        real = torch.arange(len(x["dmin"]), device=device) < n
+        ei = torch.where(real, res.end_i, -1)
+        ej = torch.where(real, res.end_j, -1)
+        trace, fi, fj = traceback_walk(res.dirs, x["dminq"], ei, ej, W=W,
+                                       device=device)
+        # every walk must move from its end cell to its start cell by its
+        # trace's ops: checked on the device, copied with the cursors
+        di, dj = trace_moves(trace, len(ei))
+        bad = ((ei - fi) != di) | ((ej - fj) != dj)
+        host += [torch.stack([fi, fj, di, dj, bad.to(torch.int32)]), trace]
+    elif with_transcripts:
+        host += [torch.stack([res.end_i[:n], res.end_j[:n]]), res.dirs]
+    host = [_to_host(h, device) for h in host]
+    event = None
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return _Launch(idxs, x, host, event)
+
+
+def _finish(launch, flags, with_transcripts, device_walk):
+    """Wait for a dispatched launch and return its scores and, with
+    transcripts, its ``(ops, start_i, start_j)`` compacted by the C++
+    tier; a walk that does not lead from its end cell raises."""
+    if launch.event is not None:
+        launch.event.synchronize()
+    x, n = launch.x, len(launch.idxs)
+    score = launch.host[0].numpy()
+    if not with_transcripts:
+        return score, None
+    # the walk's cursors and trace, or the end cells and the plane
+    cursors, walked = (h.numpy() for h in launch.host[1:])
+    codes = (x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
+             x["t_lens"][:n])
+    with Phase("pipeline.compact"):
+        if not device_walk:
+            return score, native.traceback_batch_ad(
+                walked, x["dminq"][:n], *codes, *cursors, flags)
+        fi, fj, di, dj, bad = cursors
+        if bad.any():
+            raise RuntimeError(
+                "the walk's trace does not lead from the end cells to its"
+                " final cursors for pairs %s of the launch of rows %s"
+                % (np.nonzero(bad)[0][:8].tolist(),
+                   list(launch.idxs)[:8]))
+        return score, native.compact_sweep_ops_t(
+            walked, fi, fj, *codes, flags, moves=(di[:n], dj[:n]))
 
 
 def extend_segments(S, T, segments: List[Dict], *, subst=None,
@@ -297,40 +380,46 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     ops = [""] * B
     si_all = np.zeros((B,), np.int32)
     sj_all = np.zeros((B,), np.int32)
-    put = lambda x: torch.from_numpy(x).to(device)
+    dp_kw = dict(subst=subst, go=float(go_score), ge=float(ge_score),
+                 flags=flags, r_chunk=int(_r_chunk))
 
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
+    # launches in flight, oldest first, and the bytes they count
+    pending, inflight = deque(), 0
+
+    def finish_oldest():
+        nonlocal inflight
+        launch, est = pending.popleft()
+        inflight -= est
+        with Phase("pipeline.finish"):
+            score, walked = _finish(launch, flags, with_transcripts,
+                                    device_walk)
+        idxs = launch.idxs
+        scores[idxs] = score
+        if walked is not None:
+            for b, idx in enumerate(idxs):
+                ops[idx] = walked[0][b]
+                si_all[idx] = walked[1][b]
+                sj_all[idx] = walked[2][b]
+
     with Phase("pipeline.extend", cells=total_cells):
         for idxs, LS, LT, W in launches:
-            n = len(idxs)
+            est = launch_bytes(len(idxs), LS, LT, W, with_transcripts,
+                               int(_r_chunk))
+            # finish the oldest launches first while this one would put
+            # the bytes in flight past the budget (0: one at a time)
+            while pending and inflight + est > PIPELINE_BYTES:
+                finish_oldest()
             x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
                               with_transcripts)
             with Phase("pipeline.launch"):
-                res = banded_dp_ad(
-                    put(x["s_codes"]), put(x["t_codes"]), put(x["s_lens"]),
-                    put(x["t_lens"]), put(x["dmin"]), W=W, subst=subst,
-                    go=float(go_score), ge=float(ge_score), flags=flags,
-                    w_eff=put(x["w_eff"]), with_dirs=with_transcripts,
-                    r_chunk=int(_r_chunk), device=device)
-                scores[idxs] = res.score[:n].cpu().numpy()
-                if not with_transcripts:
-                    continue
-                if device_walk:
-                    g_ops, g_si, g_sj = _walk_on_device(
-                        res, x, n, W, flags, device)
-                else:
-                    ends = torch.stack([res.end_i[:n], res.end_j[:n]])
-                    ei, ej = ends.cpu().numpy()
-                    g_ops, g_si, g_sj = native.traceback_batch_ad(
-                        res.dirs.cpu().numpy(), x["dminq"][:n],
-                        x["s_codes"][:n], x["t_codes"][:n],
-                        x["s_lens"][:n], x["t_lens"][:n], ei, ej, flags)
-                del res
-            for b, idx in enumerate(idxs):
-                ops[idx] = g_ops[b]
-                si_all[idx] = g_si[b]
-                sj_all[idx] = g_sj[b]
+                pending.append((_dispatch(idxs, x, W, dp_kw,
+                                          with_transcripts, device_walk,
+                                          device), est))
+            inflight += est
+        while pending:
+            finish_oldest()
 
     out = []
     for b, seg in enumerate(segments):

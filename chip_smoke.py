@@ -34,7 +34,9 @@ JAX package's overlap-recall config (1000 noisy 3 kbp reads of a
 on a world-of-one mesh.  The protein path runs
 ``protein.two_tier_scores`` on 16384 pairs of 2048 residues (10%
 homologs): the Dayhoff-6 filter and the BLOSUM62 rescore, one launch
-of the DP kernel each.
+of the DP kernel each.  The experiments users run
+(``biseqt_tpu_torch.experiments``) run at their scripts' default
+configs, among them genome homology on 2 x 2 Mbp with transcripts.
 
 Phases, each of which exits non-zero on failure:
 
@@ -103,8 +105,11 @@ Phases, each of which exits non-zero on failure:
    of the fewest antidiagonals holds the DP kernel (scores, end cells,
    the dirs plane on its live slots) and the walk kernel (trace bytes,
    cursors) to their plain twins on the card, exactly, and times the
-   twins; and times both kernels on every launch of the plan beside
-   their bounds;
+   twins; times both kernels on every launch of the plan beside
+   their bounds; and runs ``extend_segments`` on the card's segments
+   with ``pipeline.PIPELINE_BYTES`` at 0 (the serial order) and at its
+   default (launches in flight), each output equal to the call's, and
+   prints both walls and the allocator peak;
 11. runs the mapping path: writes the reference and the reads as
    FASTA, ingests the reference, then the reads with the index
    subscribed, and requires the DB to give back every letter; builds
@@ -126,21 +131,25 @@ Phases, each of which exits non-zero on failure:
    requiring the same table and segments and locus recall 1.0; and
    times ingest, the index, the queries (the share of the statistics on
    the card), the extension both ways and each launch of both kernels;
+   and runs the 100 extensions with ``PIPELINE_BYTES`` at 0 and at its
+   default as phase 10 does;
 12. runs the N-way path on the card and on the CPU, requiring the
    same seed tuples, the same segments (p-hat, S0 and S1 within rtol
    1e-5, atol 1e-6) and block recall 1.0, and times the seed build and
    discovery;
-13. runs the all-vs-all path: ``overlap_stats_sorted`` on 1000 x 10 kbp
-   reads at word length 12, bucket 64 (max_run auto, 8), one warm call
-   timed on the host clock (seconds, pair-scores/s, composites, peak
-   memory), requiring the chunked run (max_chunk 256) to equal it
+13. runs the all-vs-all path: ``experiments.index_build_bench.run`` at
+   its defaults (the k-mer table of 1000 x 10 kbp reads at word length
+   8, then ``overlap_stats_sorted`` at word length 12, bucket 64,
+   max_run auto, 8: each timed warm on the host clock; pair-scores/s,
+   composites, peak memory), requiring the chunked run (max_chunk 256) to equal it
    exactly, the first 256 reads to give the CPU's result (window, diag,
    olap_len exactly; p and s0 within rtol 1e-5, atol 1e-6) and
    ``all_vs_all_overlaps(method="sorted")`` to return exactly the pairs
    the thresholds give on those stats; then the recall config (reads
-   simulated by the host ``MutationProcess`` in a worker process while
-   phases 1-12 run; word length 8, min_score 60, min_p 0.4, min_olap
-   500) through ``overlap_stats_sorted_chunked``, requiring the JAX
+   simulated by ``experiments.overlap_recall.simulate_packed`` in a
+   worker process while phases 1-12 run; word length 8, min_score 60,
+   min_p 0.4, min_olap 500) through ``overlap_stats_sorted_chunked``
+   and ``overlap_recall.score_overlaps``, requiring the JAX
    package's precision and recall from its CPU run (``RECALL_JAX_CPU``)
    and the pairs check again; then the blockwise engine on 24 reads of
    3 kbp, requiring the card to equal the CPU;
@@ -150,7 +159,18 @@ Phases, each of which exits non-zero on failure:
    DP kernel to its plain twin on 256 pairs at A 6 and A 20 (scores
    exactly) and the call on 64 pairs to the CPU (every shared field
    exactly); and times the filter, the rescore and the full-only run by
-   CUDA events beside the kernel's bound at this shape.
+   CUDA events beside the kernel's bound at this shape;
+15. runs the ported experiments (``biseqt_tpu_torch.experiments``) at
+   their scripts' default configs: ``band_radius_stats.run`` (host
+   only, in a worker process while phases 1-12 run),
+   ``wordblot_recall.run_sweep``, ``multiple_homology.run``,
+   ``index_build_bench.run`` (run in phase 13) and
+   ``genome_homology.run_once(1, 2_000_000, 8, 12, transcripts=True)``
+   with the DP and walk kernels counted, each held to the JAX package's
+   CPU run of the same config (every untimed field; p-hat's mean error
+   within rtol 1e-5, atol 1e-6; the genome's transcript ops within rtol
+   1e-4 and match fraction within 1e-3, ``GENOME_TX_TOL``), and prints
+   one line each with the card.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
@@ -158,7 +178,8 @@ could take for the same work, from this run's bytes and operations;
 for the DP and walk kernels also their launches on each path, their
 times and bounds at the discovery path's largest launch, and the
 twins' time and error on the launch held to them; for the DP kernel
-also the protein path's times and bound),
+also the protein path's times and bound and the in-flight queue's
+walls and peaks),
 then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Fails (exit code not 0, no result)
 without a CUDA card or outside the repository.
@@ -261,6 +282,49 @@ STATS_TOL = dict(rtol=1e-5, atol=1e-6)        # p and s0: card vs CPU
 PROTEIN = dict(B=16384, L=2048, band=100, W=128, go=-11.0, ge=-1.0,
                seed=11, hom_frac=0.1, sub_rate=0.25, margin=5.0,
                twin_pairs=256, cpu_pairs=64)
+# phase 15: the experiments at their scripts' default configs, held to
+# the JAX package's CPU runs of the same configs (every untimed field;
+# p-hat's mean error within DISCOVERY_TOL), which meet BASELINE.md's
+# thresholds: Word-Blot recall@k 1.0 at p_min <= 0.7 and precision 1.0
+# (config 2), N-way block recall 1.0 (1b), genome block recall 1.0 and
+# match fraction 0.90 (5t).  experiments/band_radius_stats.py run():
+# (K, g, radius, containment at the end, containment over the path)
+BAND_RADIUS_JAX_CPU = [
+    (100, 0.05, 6, 1.0, 1.0), (400, 0.05, 12, 1.0, 1.0),
+    (1600, 0.05, 24, 0.99, 0.98), (100, 0.15, 10, 1.0, 1.0),
+    (400, 0.15, 20, 0.97, 0.97), (1600, 0.15, 40, 0.99, 0.99),
+    (100, 0.3, 15, 1.0, 0.99), (400, 0.3, 29, 1.0, 0.97),
+    (1600, 0.3, 57, 0.99, 0.98)]
+# experiments/wordblot_recall.py run_sweep(): the index report, and
+# (p_min, recall@k, precision, p-hat MAE) per threshold
+WORDBLOT_JAX_CPU = dict(
+    index_memory={"n_seeds": 153853, "seed_bytes": 3692472,
+                  "seed_bytes_per_seed": 24.0,
+                  "ref_seed_bytes_est": 6154120,
+                  "kmer_triple_bytes": 2399832,
+                  "ref_kmer_bytes_est": 9599328},
+    sweep=[(0.5, 1.0, 1.0, 0.115026700434031),
+           (0.6, 1.0, 1.0, 0.08550716731641879),
+           (0.7, 1.0, 1.0, 0.0747694104283471),
+           (0.8, 0.8333333333333334, 1.0, 0.0360975387053694)])
+# experiments/multiple_homology.py (10 sequences, 20 kbp blocks)
+NWAY_JAX_CPU = dict(n_seqs=10, total_bp=1001436, n_way_seeds=936,
+                    n_segments=2, block_recall=1.0, ps=[0.963, 0.963])
+# experiments/genome_homology.py run_once(1, 2_000_000, 8, 12,
+# transcripts=True), the script's default size
+GENOME_RUN = dict(seed=1, size=2_000_000, n_blocks=8, wordlen=12)
+GENOME_JAX_CPU = dict(size=2000000, n_blocks=8, n_segments=7,
+                      block_recall=1.0, seeds=828996,
+                      extended_cells=1406360160, tx_total_ops=2018609,
+                      tx_match_frac=0.9016, n_discovered=7)
+# The transcripts' totals are held within a tolerance, the rest exactly.
+# On the CPU the JAX package extends with its row DP over the whole band
+# and walks the row plane on the host; the port follows its TPU route
+# (the antidiagonal DP on at most W - 1 diagonals, walked on the device),
+# and the two routes may pick different alignments among equal-scoring
+# ones: 5 ops of 2,018,609 on this config (tests/test_torch_experiments.py
+# holds the port to the JAX script exactly at 20 kbp).
+GENOME_TX_TOL = dict(tx_total_ops=1e-4, tx_match_frac=1e-3)  # rel., abs.
 # dp_ad.cu:222-297, score-only, local: per band cell 6 float adds (H +
 # go, the E and F wrap masks, diag, the lane mask, the tracker drift), 6
 # maxes (E, F, H twice, the local floor, the tracker) and the 2 gap-flag
@@ -389,20 +453,6 @@ def rearranged_pair(np, rng, size, n_blocks, sub, gap):
     return A, np.concatenate(chunks), truth
 
 
-def block_recall(segments, truth):
-    """The share of truth blocks whose diagonal a segment hits, as
-    ``experiments/genome_homology.py`` counts it."""
-    found = 0
-    for a_lo, b_lo, blen in truth:
-        d = a_lo - b_lo
-        found += any(
-            s["segment"][0][0] - 64 <= d <= s["segment"][0][1] + 64
-            and s["segment"][1][0] < (a_lo + b_lo) + 2 * blen
-            and s["segment"][1][1] > (a_lo + b_lo)
-            for s in segments)
-    return found / len(truth)
-
-
 def rescore(np, ops, s, t, si, sj, subst):
     """Affine-gap score of an MSID transcript starting at (si, sj), and
     whether its M / S letters agree with the characters."""
@@ -442,6 +492,7 @@ def genome_phase(dev, card, subst):
 
     from biseqt_tpu_torch import pipeline, profiling
     from biseqt_tpu_torch.blot import WordBlot
+    from biseqt_tpu_torch.experiments.genome_homology import block_recall
     from biseqt_tpu_torch.ops import dp_ad, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
@@ -545,6 +596,11 @@ def genome_phase(dev, card, subst):
     recall = block_recall(found, truth)
     if recall != 1.0:
         fail("block recall %r, not 1.0" % recall)
+    queue = queue_runs("genome (%d launches)" % len(glaunches), dev, card,
+                       lambda: sorted(pipeline.extend_segments(
+                           Sg, Tg, segs_card, with_transcripts=True,
+                           device=dev), key=lambda row: -row["score"]),
+                       found)
     g_cells = sum(row["band_cells"] for row in found)
     g_ops = sum(len(row["transcript"]) for row in found)
     print("discover_and_extend (%s): %d seeds, %d segments discovered, %d"
@@ -584,7 +640,7 @@ def genome_phase(dev, card, subst):
           % (sum(t[1] for t in timed), sum(t[3] for t in timed), len(timed),
              secs["pipeline.extend"]))
     _, dp_ms, dp_bound, walk_ms, walk_bound = max(timed)
-    return {"launches": disc_counts,
+    return {"launches": disc_counts, "queue": queue,
             "dp_ad": {"ms": dp_ms, "bound_ms": dp_bound[0],
                       "bound_by": dp_bound[1],
                       "plan_ms": sum(t[1] for t in timed),
@@ -889,6 +945,13 @@ def mapping_phase(dev, card, subst):
         if ops < 0.8 * m["queries"] * m["read_len"]:
             fail("mapped transcripts hold %d ops, under 80%% of the queries'"
                  " letters" % ops)
+        # one call, so one launch, a query: nothing to keep in flight
+        queue = queue_runs("mapping (%d calls)" % len(queries), dev, card,
+                           lambda: [pipeline.extend_segments(
+                               q, R, [top], subst=subst, go_score=GO,
+                               ge_score=GE, with_transcripts=True,
+                               device=dev) for q, top in zip(queries, tops)],
+                           mapped)
 
         # -- the same extension walked on the host (device_walk=False):
         # K1 on the card, each plane copied and walked by the C++ tier,
@@ -975,7 +1038,7 @@ def mapping_phase(dev, card, subst):
           " and start cells == the device walk's" % (
               card, host_walk_s, len(queries), secs["smoke.map.extend"]))
     wide_mapping(dev, card)
-    return {"launches": map_counts,
+    return {"launches": map_counts, "queue": queue,
             "dp_ad": {"plan_ms": dp_ms, "plan_bound_ms": dp_bound,
                       "held_launch": twin["shape"],
                       "held_plain_ms": twin["dp_plain_ms"],
@@ -1114,55 +1177,6 @@ def nway_phase(dev, card):
              secs["blot.stats"]))
 
 
-def simulate_reads(seed, genome_len, read_len, n_reads, err):
-    """experiments/overlap_recall.py's reads through the port's host
-    tier (bit-equal to the JAX package's with the same generator):
-    ``(codes, lengths, starts)``."""
-    import numpy as np
-
-    from biseqt_tpu_torch.sequence import Alphabet, pack_sequences
-    from biseqt_tpu_torch.stochastics import MutationProcess, rand_seq
-
-    A4 = Alphabet("ACGT")
-    rng = np.random.default_rng(seed)
-    M = MutationProcess(A4, subst_probs=err * 0.6, go_prob=err * 0.2,
-                        ge_prob=err * 0.5, rng=rng)
-    genome = rand_seq(A4, genome_len, rng=rng)
-    reads, starts = [], []
-    for _ in range(n_reads):
-        start = int(rng.integers(0, genome_len - read_len))
-        r, _ = M.mutate(genome[start:start + read_len])
-        reads.append(r)
-        starts.append(start)
-    codes, lens = pack_sequences(reads)
-    return codes, lens, np.asarray(starts)
-
-
-def score_overlaps(np, stats, starts, read_len, wordlen, min_olap,
-                   min_score, min_p):
-    """experiments/overlap_recall.py's accounting (``run``), vectorised:
-    true overlaps of at least ``min_olap`` columns, ambiguous ones
-    (shorter, but longer than two words) left out."""
-    n = len(starts)
-    o = read_len - np.abs(starts[:, None] - starts[None, :])
-    pairs = np.triu(np.ones((n, n), bool), k=1) & ~(
-        (2 * wordlen < o) & (o < min_olap))
-    pred = ((stats["s0"] >= min_score) & (stats["p"] >= min_p)
-            & (stats["olap_len"] >= min_olap // 2))
-    truth = o >= min_olap
-    tp = pairs & pred & truth
-    n_tp = int(tp.sum())
-    n_fp = int((pairs & pred & ~truth).sum())
-    n_fn = int((pairs & ~pred & truth).sum())
-    qq, tt = np.nonzero(tp)
-    d_errs = [abs(int(stats["diag"][q, t]) - (int(starts[t]) - int(starts[q])))
-              for q, t in zip(qq, tt)]
-    return {"precision": n_tp / (n_tp + n_fp) if n_tp + n_fp else None,
-            "recall": n_tp / max(n_tp + n_fn, 1),
-            "n_predictions": n_tp + n_fp,
-            "diag_mae": float(np.mean(d_errs)) if d_errs else None}
-
-
 def stats_equal(np, got, want, exact, what):
     """Integer statistics exactly, p and s0 within STATS_TOL; returns
     the largest |d| of p and s0."""
@@ -1189,7 +1203,9 @@ def overlap_phase(dev, card, recall_reads):
     import numpy as np
     import torch
 
-    from biseqt_tpu_torch import stochastics
+    from biseqt_tpu_torch.experiments import index_build_bench
+    from biseqt_tpu_torch.experiments.overlap_recall import (
+        score_overlaps, simulate_packed)
     from biseqt_tpu_torch.ops.allvsall_sorted import (
         auto_max_run, overlap_stats_sorted, overlap_stats_sorted_chunked)
     from biseqt_tpu_torch.parallel import all_vs_all_overlaps, make_mesh
@@ -1198,22 +1214,22 @@ def overlap_phase(dev, card, recall_reads):
     t_phase = time.perf_counter()
     ov = OVERLAP
     N, L, w = ov["reads"], ov["read_len"], ov["wordlen"]
-    gen = torch.Generator(device=dev).manual_seed(OVERLAP_SEED)
-    codes_w = stochastics.rand_seq_batch(gen, N, L, device=dev)
-    codes = stochastics.rand_seq_batch(gen, N, L, device=dev)
-    lens = torch.full((N,), L, dtype=torch.int32, device=dev)
-    kw = dict(wordlen=w, n_reads=N, bucket=ov["bucket"], device=dev)
     max_run = auto_max_run(N, L, w)
-    overlap_stats_sorted(codes_w, lens, **kw)          # warm-up
-    del codes_w
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
-    t0 = time.perf_counter()
-    stats = overlap_stats_sorted(codes, lens, **kw)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    # index_build_bench at its defaults: the k-mer table at word length
+    # 8, then the sort-join at word length 12, bucket 64, each timed on
+    # fresh reads after a warm-up
+    ibb = index_build_bench.run(N, L, device=dev, seed=OVERLAP_SEED)
+    codes, lens, stats = ibb.codes, ibb.lens, ibb.stats
+    build_s, secs = ibb.seconds
     peak = torch.cuda.max_memory_allocated(dev) - held
+    if (ibb.row["join_wordlen"], ibb.row["kmers_indexed"]) != (
+            w, N * (L - ibb.row["wordlen"] + 1)):
+        fail("index_build_bench: join word %d, %d k-mers indexed"
+             % (ibb.row["join_wordlen"], ibb.row["kmers_indexed"]))
+    kw = dict(wordlen=w, n_reads=N, bucket=ov["bucket"], device=dev)
     chunked = overlap_stats_sorted_chunked(codes, lens,
                                            max_chunk=ov["chunk"], **kw)
     for k in stats:
@@ -1239,14 +1255,17 @@ def overlap_phase(dev, card, recall_reads):
             & np.triu(np.ones((N, N), bool), k=1))
     if [(q, t) for q, t, *_ in pairs] != list(zip(*np.nonzero(mask))):
         fail("all_vs_all_overlaps' pairs differ from the thresholded stats")
+    print("index_build_bench (%s): %s" % (card, json.dumps(ibb.row)))
     print("all-vs-all sort-join (%s): %d reads of %d bp, word %d, bucket"
-          " %d, max_run %d (auto): %.4f s warm, %.0f pair-scores/s; %d"
-          " composites (%.0f MB int32), peak %.2f GB allocated by the call;"
-          " == chunked"
+          " %d, max_run %d (auto): the k-mer table (word %d, %d k-mers)"
+          " %r s, the sort-join %r s warm, %.0f pair-scores/s; %d"
+          " composites (%.0f MB int32), peak %.2f GB allocated by"
+          " index_build_bench.run; == chunked"
           " (max_chunk %d) exactly; first %d reads == the CPU (window,"
           " diag, olap_len exactly, p/s0 max |d| %.3g; the CPU's %.2f s);"
           " all_vs_all_overlaps: %d pairs == the thresholded stats"
-          % (card, N, L, w, ov["bucket"], max_run, secs, N * N / secs,
+          % (card, N, L, w, ov["bucket"], max_run, ibb.row["wordlen"],
+             ibb.row["kmers_indexed"], build_s, secs, N * N / secs,
              2 * max_run * N * L, 2 * max_run * N * L * 4 / 1e6, peak / 1e9,
              ov["chunk"], n, cpu_err, cpu_s, len(pairs)))
 
@@ -1261,7 +1280,7 @@ def overlap_phase(dev, card, recall_reads):
     torch.cuda.synchronize()
     r_secs = time.perf_counter() - t0
     r_host = {k: v.cpu().numpy() for k, v in r_stats.items()}
-    got = score_overlaps(np, r_host, starts, rc["read_len"], sc["wordlen"],
+    got = score_overlaps(r_host, starts, rc["read_len"], sc["wordlen"],
                          sc["min_olap"], sc["min_score"], sc["min_p"])
     for k in ("precision", "recall", "n_predictions"):
         if got[k] != RECALL_JAX_CPU[k]:
@@ -1290,7 +1309,7 @@ def overlap_phase(dev, card, recall_reads):
 
     # (c) the blockwise engine on a world-of-one mesh
     bw = BLOCKWISE
-    b_codes, b_lens, b_starts = simulate_reads(
+    b_codes, b_lens, b_starts = simulate_packed(
         bw["seed"], bw["genome_len"], bw["read_len"], bw["n_reads"],
         bw["err"])
     mesh = make_mesh(device=dev)
@@ -1312,7 +1331,7 @@ def overlap_phase(dev, card, recall_reads):
                                    device="cpu")
     b_err = stats_equal(np, b_card, b_cpu, ("num_seeds", "diag", "olap_len"),
                         "blockwise stats, card vs CPU")
-    b_score = score_overlaps(np, b_card, b_starts, bw["read_len"],
+    b_score = score_overlaps(b_card, b_starts, bw["read_len"],
                              sc["wordlen"], sc["min_olap"], sc["min_score"],
                              sc["min_p"])
     print("blockwise all-vs-all (%s): %d reads of %d bp, mesh %s: %d pairs"
@@ -1325,22 +1344,8 @@ def overlap_phase(dev, card, recall_reads):
     print("phase 13: %.1f s" % phase_s)
     return {"seconds": secs, "pair_scores_per_s": N * N / secs,
             "peak_bytes": peak, "recall": got, "recall_seconds": r_secs,
-            "blockwise_seconds": b_secs, "phase_seconds": phase_s}
-
-
-def protein_batch(np, rng, B, L, hom_frac, sub_rate):
-    """experiments/protein_search.py's ``mk_batch``."""
-    ss = rng.integers(0, 20, (B, L), dtype=np.int8)
-    ts = rng.integers(0, 20, (B, L), dtype=np.int8)
-    n_hom = int(B * hom_frac)
-    hom = rng.permutation(B)[:n_hom]
-    ts[hom] = ss[hom]
-    m = rng.random((n_hom, L)) < sub_rate
-    ts[hom] = np.where(
-        m, rng.integers(0, 20, (n_hom, L), dtype=np.int8), ts[hom])
-    is_hom = np.zeros(B, bool)
-    is_hom[hom] = True
-    return ss, ts, is_hom
+            "blockwise_seconds": b_secs, "phase_seconds": phase_s,
+            "row": ibb.row}
 
 
 def protein_phase(dev, card):
@@ -1351,6 +1356,7 @@ def protein_phase(dev, card):
     import numpy as np
     import torch
 
+    from biseqt_tpu_torch.experiments.protein_search import mk_batch
     from biseqt_tpu_torch.matrices import (BLOSUM62, DAYHOFF6_GROUPS,
                                            compression_map, reduced_matrix)
     from biseqt_tpu_torch.ops import dp_ad
@@ -1380,12 +1386,11 @@ def protein_phase(dev, card):
                   g_dmin[rows], subst=mat, w_eff=g_weff[rows], device=dev,
                   **kw)
 
-    ns, nt, _ = protein_batch(np, rng, B, L, 0.0, pc["sub_rate"])
+    ns, nt, _ = mk_batch(rng, B, L, 0.0, pc["sub_rate"])
     null = k1(on(compress_codes(ns, cmap)), on(compress_codes(nt, cmap)),
               red)
     thr = null_threshold(null.score, margin=pc["margin"])
-    ss, ts, is_hom = protein_batch(np, rng, B, L, pc["hom_frac"],
-                                   pc["sub_rate"])
+    ss, ts, is_hom = mk_batch(rng, B, L, pc["hom_frac"], pc["sub_rate"])
     two_tier_scores(ss[:8], ts[:8], lens[:8], lens[:8], dmin[:8],
                     w_eff=w_eff[:8], threshold=thr, device=dev, **kw)
     torch.cuda.synchronize()
@@ -1475,6 +1480,166 @@ def protein_phase(dev, card):
             "phase_seconds": phase_s}
 
 
+def queue_runs(label, dev, card, extend, want):
+    """The in-flight queue of ``extend_segments``: ``extend()`` (the
+    phase's extension, called as the phase calls it) with
+    ``pipeline.PIPELINE_BYTES`` at 0 (each launch finished before the
+    next is dispatched) and at its default, in turns (serial, in flight,
+    in flight, serial), each output equal to ``want`` byte for byte;
+    prints the walls (host clock, ending in a synchronise) and each
+    run's allocator peak above what was held."""
+    import torch
+
+    from biseqt_tpu_torch import pipeline
+
+    from biseqt_tpu_torch import profiling
+
+    spans = ("pipeline.launch", "pipeline.finish", "pipeline.compact")
+    default = pipeline.PIPELINE_BYTES
+    got = {name: {"seconds": [], "peak_bytes": [], "spans": []}
+           for name in ("serial", "in_flight")}
+    try:
+        for name in ("serial", "in_flight", "in_flight", "serial"):
+            budget = default if name == "in_flight" else 0
+            pipeline.PIPELINE_BYTES = budget
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            before = profiling.counters()
+            t0 = time.perf_counter()
+            out = extend()
+            torch.cuda.synchronize()
+            got[name]["seconds"].append(time.perf_counter() - t0)
+            got[name]["peak_bytes"].append(
+                torch.cuda.max_memory_allocated(dev) - held)
+            got[name]["spans"].append(phase_seconds(before, spans))
+            if out != want:
+                fail("%s: extend_segments with PIPELINE_BYTES %d differs"
+                     " from the phase's output" % (label, budget))
+    finally:
+        pipeline.PIPELINE_BYTES = default
+    print("%s in-flight queue (%s): PIPELINE_BYTES 0 (serial) %r s, K1's"
+          " allocator peak %r bytes; PIPELINE_BYTES %d (default, in"
+          " flight) %r s, peak %r bytes; every output == the phase's, byte"
+          " for byte" % (label, card, got["serial"]["seconds"],
+                         got["serial"]["peak_bytes"], default,
+                         got["in_flight"]["seconds"],
+                         got["in_flight"]["peak_bytes"]))
+    for name in ("serial", "in_flight"):
+        print("%s in-flight queue, %s: host seconds in %s" % (
+            label, name, "; ".join(
+                ", ".join("%s %.4f" % (k, v) for k, v in run.items())
+                for run in got[name]["spans"])))
+    return got
+
+
+def band_radius_rows():
+    """``band_radius_stats.run()`` at its defaults (host work only) and
+    its seconds: run in a worker process while the card works."""
+    from biseqt_tpu_torch.experiments import band_radius_stats
+
+    t0 = time.perf_counter()
+    rows = band_radius_stats.run()
+    return rows, time.perf_counter() - t0
+
+
+def experiments_phase(dev, card, band_rows, ibb_row):
+    """Phase 15: the ported experiments at their scripts' default
+    configs on the card, each held to the JAX package's CPU run of the
+    same config (``*_JAX_CPU``), one line each with the card.
+    ``index_build_bench`` ran in phase 13; its row is ``ibb_row``."""
+    import numpy as np
+
+    from biseqt_tpu_torch.experiments import (genome_homology,
+                                              multiple_homology,
+                                              wordblot_recall)
+    from biseqt_tpu_torch.ops import dp_ad, walk
+
+    t_phase = time.perf_counter()
+    secs = {}
+    rows, secs["band_radius_stats"] = band_rows.get(timeout=600)
+    got = [(r["K"], r["g"], r["radius"], r["containment_endpoint"],
+            r["containment_sup"]) for r in rows]
+    if got != BAND_RADIUS_JAX_CPU:
+        fail("band_radius_stats: %s, the JAX package's CPU run %s"
+             % (got, BAND_RADIUS_JAX_CPU))
+    print("experiment band_radius_stats (%s): %d rows (K, g) == the JAX"
+          " package's CPU run; endpoint containment %s; %r s on the host"
+          % (card, len(rows), [float(r[3]) for r in got],
+             secs["band_radius_stats"]))
+
+    t0 = time.perf_counter()
+    rows = wordblot_recall.run_sweep(device=dev)
+    secs["wordblot_recall"] = time.perf_counter() - t0
+    want = WORDBLOT_JAX_CPU
+    sweep = [(r["p_min"], r["recall_at_k"], r["precision"])
+             for r in rows[1:]]
+    mae = [r["p_hat_mae"] for r in rows[1:]]
+    if (rows[0]["index_memory"] != want["index_memory"]
+            or sweep != [w[:3] for w in want["sweep"]]
+            or not np.allclose(mae, [w[3] for w in want["sweep"]],
+                               **DISCOVERY_TOL)):
+        fail("wordblot_recall: %s, the JAX package's CPU run %s"
+             % (rows, want))
+    print("experiment wordblot_recall (%s): 3 trials of 100 kbp pairs,"
+          " (p_min, recall@k, precision) %s, p-hat MAE %s == the JAX"
+          " package's CPU run; %d seeds, %.1f B a seed; %r s"
+          % (card, sweep, mae, rows[0]["index_memory"]["n_seeds"],
+             rows[0]["index_memory"]["seed_bytes_per_seed"],
+             secs["wordblot_recall"]))
+
+    t0 = time.perf_counter()
+    row = multiple_homology.run(device=dev)
+    secs["multiple_homology"] = time.perf_counter() - t0
+    ps = row.pop("ps")
+    untimed = {k: v for k, v in row.items() if not k.endswith("_s")}
+    want = dict(NWAY_JAX_CPU)
+    if untimed != {k: v for k, v in want.items() if k != "ps"} or not \
+            np.allclose(ps, want["ps"], rtol=0, atol=1e-3):
+        fail("multiple_homology: %s %s, the JAX package's CPU run %s"
+             % (row, ps, want))
+    print("experiment multiple_homology (%s): %s, ps %s == the JAX"
+          " package's CPU run; %r s" % (card, json.dumps(row), ps,
+                                        secs["multiple_homology"]))
+
+    print("experiment index_build_bench (%s): %s (phase 13)"
+          % (card, json.dumps(ibb_row)))
+
+    g = GENOME_RUN
+    dp_ad.LAUNCHES = 0
+    walk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    row = genome_homology.run_once(g["seed"], g["size"], g["n_blocks"],
+                                   g["wordlen"], transcripts=True,
+                                   device=dev)
+    secs["genome_homology"] = time.perf_counter() - t0
+    launches = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    if not launches["dp_ad"] or launches["dp_ad"] != launches["walk"]:
+        fail("genome_homology.run_once: launches %s, not one walk a DP"
+             " launch" % launches)
+    untimed = {k: v for k, v in row.items() if not k.startswith("t_")
+               and k != "extend_gcups"}
+    want, tol = GENOME_JAX_CPU, GENOME_TX_TOL
+    exact = {k: v for k, v in untimed.items() if k not in tol}
+    if exact != {k: v for k, v in want.items() if k not in tol} or not (
+            abs(row["tx_total_ops"] - want["tx_total_ops"])
+            <= tol["tx_total_ops"] * want["tx_total_ops"]
+            and abs(row["tx_match_frac"] - want["tx_match_frac"])
+            <= tol["tx_match_frac"]):
+        fail("genome_homology: %s, the JAX package's CPU run %s"
+             % (untimed, want))
+    print("experiment genome_homology (%s): %s == the JAX package's CPU"
+          " run (untimed fields; transcript ops %d against %d, within rtol"
+          " %g); launches %s; %r s"
+          % (card, json.dumps(row), row["tx_total_ops"],
+             want["tx_total_ops"], tol["tx_total_ops"], launches,
+             secs["genome_homology"]))
+    phase_s = time.perf_counter() - t_phase
+    print("phase 15: %.1f s" % phase_s)
+    return {"seconds": secs, "phase_seconds": phase_s,
+            "launches": launches}
+
+
 def main():
     import torch
 
@@ -1482,20 +1647,24 @@ def main():
         fail("torch.cuda.is_available() is false: this run needs a card")
     import biseqt_tpu_torch  # noqa: F401  (outside the repository: fails)
 
-    # phase 13's recall reads come from the host's sequential mutation
-    # model (~50 s): simulated in a worker process while phases 1-12 run
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    from biseqt_tpu_torch.experiments.overlap_recall import simulate_packed
+
+    # host work of the sequential mutation model, in worker processes
+    # while phases 1-12 run: phase 13's recall reads (~50 s) and phase
+    # 15's band-radius statistics (no device work)
+    pool = multiprocessing.get_context("spawn").Pool(2)
     try:
-        recall_reads = pool.apply_async(simulate_reads, (
+        recall_reads = pool.apply_async(simulate_packed, (
             RECALL["seed"], RECALL["genome_len"], RECALL["read_len"],
             RECALL["n_reads"], RECALL["err"]))
-        run(recall_reads)
+        band_rows = pool.apply_async(band_radius_rows)
+        run(recall_reads, band_rows)
     finally:
         pool.terminate()
         pool.join()
 
 
-def run(recall_reads):
+def run(recall_reads, band_rows):
     import numpy as np
     import torch
 
@@ -2076,10 +2245,13 @@ def run(recall_reads):
     nway_phase(dev, card)
 
     # -- 13. all-vs-all read overlaps ------------------------------------
-    overlap_phase(dev, card, recall_reads)
+    overlap = overlap_phase(dev, card, recall_reads)
 
     # -- 14. two-tier protein search, counted ----------------------------
     protein = protein_phase(dev, card)
+
+    # -- 15. the experiments at their default configs -----------------
+    experiments = experiments_phase(dev, card, band_rows, overlap["row"])
 
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
@@ -2092,9 +2264,13 @@ def run(recall_reads):
                               "discover_and_extend":
                                   genome["launches"]["dp_ad"],
                               "map_reads": mapping["launches"]["dp_ad"],
-                              "two_tier_protein": protein["launches"]},
+                              "two_tier_protein": protein["launches"],
+                              "genome_homology":
+                                  experiments["launches"]["dp_ad"]},
          "discover_and_extend": genome["dp_ad"],
          "map_reads": mapping["dp_ad"],
+         "in_flight_queue": {"discover_and_extend": genome["queue"],
+                             "map_reads": mapping["queue"]},
          "two_tier_protein": {
              k: protein[k] for k in ("filter_ms", "rescore_ms",
                                      "full_only_ms", "bound_ms", "bound_by",
@@ -2108,7 +2284,9 @@ def run(recall_reads):
          "launches_by_path": {"extend_segments": counts["walk"],
                               "discover_and_extend":
                                   genome["launches"]["walk"],
-                              "map_reads": mapping["launches"]["walk"]},
+                              "map_reads": mapping["launches"]["walk"],
+                              "genome_homology":
+                                  experiments["launches"]["walk"]},
          "discover_and_extend": genome["walk"],
          "map_reads": mapping["walk"]},
         {"name": "dp_row", "route": "cuda",

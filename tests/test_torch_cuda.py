@@ -316,6 +316,78 @@ def test_extend_segments_card_matches_cpu(rng, card):
         extend_segments(S, T, segments, device=card, use_pallas=False, **kw)
 
 
+def _three_launch_plan(rng):
+    """Three planted 300 bp blocks whose segments' bands bucket to W 128,
+    256 and 384: one launch each."""
+    A4 = Alphabet("ACGT")
+    s_parts, t_parts, segments = [], [], []
+    s_pos = t_pos = 0
+    for k, half in enumerate((8, 80, 150)):
+        core = rng.integers(0, 4, 300)
+        mut = core.copy()
+        hit = rng.random(300) < 0.1
+        mut[hit] = (mut[hit] + 1 + rng.integers(0, 3, hit.sum())) % 4
+        gap_s, gap_t = 200 + 50 * k, 100 + 300 * k
+        s_parts += [rng.integers(0, 4, gap_s), core]
+        t_parts += [rng.integers(0, 4, gap_t), mut]
+        i0, j0 = s_pos + gap_s, t_pos + gap_t
+        d, a = i0 - j0, i0 + j0
+        segments.append({"segment": ((d - half, d + half), (a, a + 600))})
+        s_pos, t_pos = i0 + 300, j0 + 300
+    S = Sequence(A4, np.concatenate(s_parts))
+    T = Sequence(A4, np.concatenate(t_parts))
+    return S, T, segments
+
+
+@pytest.mark.parametrize("device_walk", [True, False])
+def test_extend_segments_in_flight_equals_serial_on_the_card(
+        rng, card, monkeypatch, device_walk):
+    """Three launches on the card, every one in flight (the default
+    budget) and one at a time (budget 0): the same output, equal to the
+    plain twins' on the CPU."""
+    from biseqt_tpu_torch import pipeline
+
+    S, T, segments = _three_launch_plan(rng)
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
+              device_walk=device_walk, _r_chunk=16)
+    assert len(pipeline.extension_plan(segments, len(S), len(T),
+                                       True)[3]) == 3
+    n_dp = dp_ad.LAUNCHES
+    in_flight = extend_segments(S, T, segments, device=card, **kw)
+    monkeypatch.setattr(pipeline, "PIPELINE_BYTES", 0)
+    serial = extend_segments(S, T, segments, device=card, **kw)
+    assert dp_ad.LAUNCHES - n_dp == 6
+    assert in_flight == serial
+    assert serial == extend_segments(S, T, segments, device="cpu", **kw)
+    assert all(seg["score"] > 150 for seg in serial)
+
+
+def test_extend_segments_bad_walk_raises_on_the_card(rng, card, monkeypatch):
+    """The second of three launches in flight walks a trace corrupted on
+    the card (one diagonal op turned into an insertion): its finish
+    raises."""
+    from biseqt_tpu_torch import pipeline
+
+    S, T, segments = _three_launch_plan(rng)
+    walks = []
+    real = pipeline.traceback_walk
+
+    def corrupt(*args, **kwargs):
+        trace, fi, fj = real(*args, **kwargs)
+        walks.append(1)
+        if len(walks) == 2:
+            trace = trace.clone()
+            row = int(torch.nonzero(trace[0, :, 0] & 3 == 1)[0, 0])
+            trace[0, row, 0] += 1
+        return trace, fi, fj
+
+    monkeypatch.setattr(pipeline, "traceback_walk", corrupt)
+    with pytest.raises(RuntimeError, match="does not lead from the end"):
+        extend_segments(S, T, segments, device=card, go_score=-3.0,
+                        ge_score=-1.0, with_transcripts=True, _r_chunk=16)
+    assert len(walks) == 3
+
+
 @pytest.mark.parametrize("W,B", [
     (128, 1), (128, 5), (128, 600), (256, 1), (256, 5), (256, 600),
     (384, 1), (512, 1), (512, 5), (512, 600), (1280, 5), (2176, 5),

@@ -23,7 +23,11 @@ import torch
 
 from biseqt_tpu_torch import (blot, kmers, native, pipeline, protein, pw,
                               seeds, stochastics)
-from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
+from biseqt_tpu_torch.experiments import (fixed_ref_bench, genome_homology,
+                                          i16_probe, index_build_bench,
+                                          multiple_homology, overlap_recall,
+                                          protein_search, transpose_probe,
+                                          wordblot_recall)
 from biseqt_tpu_torch.ops import (allvsall_sorted, banded_dp, blot_stats,
                                   dp_ad, dp_row, tables, walk)
 from biseqt_tpu_torch.parallel import allvsall, mesh
@@ -245,6 +249,32 @@ _OVERLAP_CALLS = {
         flags=banded_dp.ModeFlags(local_start=True, local_end=True),
         **kw)),
 }
+# the experiments, each at a tiny size
+_EXPERIMENT_CALLS = {
+    "wordblot_recall.run_sweep": (wordblot_recall.run_sweep, lambda **kw:
+                                  wordblot_recall.run_sweep(
+                                      seq_len=3000, n_segments=2,
+                                      seg_len=400, n_trials=1, K_min=200,
+                                      p_mins=(0.6,), **kw)),
+    "multiple_homology.run": (multiple_homology.run, lambda **kw:
+                              multiple_homology.run(2, 1000, **kw)),
+    "fixed_ref_bench.run": (fixed_ref_bench.run, lambda **kw:
+                            fixed_ref_bench.run(
+                                ref_len=20_000, n_queries=2, query_len=1000,
+                                wordlen=8, K_min=200, **kw)),
+    "index_build_bench.run": (index_build_bench.run, lambda **kw:
+                              index_build_bench.run(4, 200, **kw)),
+    "genome_homology.run_once": (genome_homology.run_once, lambda **kw:
+                                 genome_homology.run_once(1, 4000, 2, 8,
+                                                          **kw)),
+    "overlap_recall.run": (overlap_recall.run, lambda **kw:
+                           overlap_recall.run(genome_len=3000, read_len=800,
+                                              n_reads=4, **kw)),
+    "protein_search.run": (protein_search.run, lambda **kw:
+                           protein_search.run(B=16, L=32, n_batches=2,
+                                              **kw)),
+}
+ENTRY_POINTS.update(_EXPERIMENT_CALLS)
 ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
                      for name, call in _NULL_MODEL_CALLS.items()})
 ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
@@ -350,9 +380,9 @@ print(len(names), "ok")
 
 
 def test_every_port_module_imports_without_jax():
-    """Every module of the port (the all-vs-all, mesh and protein modules
-    and the batch tier included) imports in an interpreter that refuses
-    jax and the JAX package."""
+    """Every module of the port (the all-vs-all, mesh and protein modules,
+    the batch tier and the experiments included) imports in an
+    interpreter that refuses jax and the JAX package."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c",
@@ -361,8 +391,16 @@ def test_every_port_module_imports_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     count, ok = out.stdout.split()
-    assert ok == "ok" and int(count) >= 30
+    assert ok == "ok" and int(count) >= 41
     for module in ("protein", "parallel.mesh", "parallel.allvsall",
-                   "ops.allvsall_sorted"):
+                   "ops.allvsall_sorted", "experiments.util",
+                   "experiments.figures", "experiments.band_radius_stats",
+                   "experiments.wordblot_recall",
+                   "experiments.multiple_homology",
+                   "experiments.fixed_ref_bench", "experiments.ingest_bench",
+                   "experiments.index_build_bench",
+                   "experiments.genome_homology",
+                   "experiments.overlap_recall",
+                   "experiments.protein_search"):
         assert os.path.exists(os.path.join(
             PORT, module.replace(".", os.sep) + ".py"))

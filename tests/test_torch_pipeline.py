@@ -202,11 +202,8 @@ def test_plan_launches_fills_the_budget(monkeypatch, budget,
         range(2048))
 
 
-def test_extend_segments_split_into_launches_changes_nothing(
-        rng, monkeypatch):
-    """Scores, transcripts and start cells do not depend on how the
-    segments are split into launches: a memory budget small enough to
-    put two pairs in each launch against the default, one launch."""
+def _planted_blocks(rng):
+    """Five planted homologous blocks of 200 bp and one segment each."""
     s_parts, t_parts, segments = [], [], []
     s_pos = t_pos = 0
     for k in range(5):         # five planted homologous blocks of 200 bp
@@ -221,8 +218,16 @@ def test_extend_segments_split_into_launches_changes_nothing(
         segments.append({"segment": ((i0 - j0 - 8, i0 - j0 + 8),
                                      (i0 + j0, i0 + j0 + 400))})
         s_pos, t_pos = i0 + 200, j0 + 200
-    S2 = Sequence(A4, np.concatenate(s_parts))
-    T2 = Sequence(A4, np.concatenate(t_parts))
+    return (Sequence(A4, np.concatenate(s_parts)),
+            Sequence(A4, np.concatenate(t_parts)), segments)
+
+
+def test_extend_segments_split_into_launches_changes_nothing(
+        rng, monkeypatch):
+    """Scores, transcripts and start cells do not depend on how the
+    segments are split into launches: a memory budget small enough to
+    put two pairs in each launch against the default, one launch."""
+    S2, T2, segments = _planted_blocks(rng)
     calls = []
     real = pipeline.banded_dp_ad
     monkeypatch.setattr(pipeline, "banded_dp_ad",
@@ -239,6 +244,135 @@ def test_extend_segments_split_into_launches_changes_nothing(
     assert got == want
     _rescores(S2, T2, got)
     assert all(seg["score"] > 100 for seg in got)
+
+
+# the in-flight queue: five planted blocks, each split into a-windows
+# (pad_a 16 and the smallest plane budget: windows of 128 antidiagonals),
+# two pairs a launch
+QUEUE_KW = dict(subst=UNIT, go_score=-3.0, ge_score=-1.0, pad_a=16,
+                _dirs_budget=1, _r_chunk=16)
+ROUTES = {"device_walk": dict(with_transcripts=True),
+          "host_walk": dict(with_transcripts=True, device_walk=False),
+          "score_only": dict(with_transcripts=False)}
+
+
+@pytest.fixture(scope="module")
+def queue_case():
+    """The sequences, each route's segments and the JAX package's output
+    of each route (its host route, ``use_pallas=False``, for both
+    transcript routes).  Score-only extension splits no windows and puts
+    at least 8 pairs in a launch, so its segments are the transcript
+    routes' windows."""
+    S, T, segments = _planted_blocks(np.random.default_rng(17))
+    windows = pipeline.extension_plan(segments, len(S), len(T), True,
+                                      pad_a=QUEUE_KW["pad_a"],
+                                      dirs_budget=1)[0]
+    inputs, want = {}, {}
+    for route, kw in ROUTES.items():
+        inputs[route] = windows if route == "score_only" else segments
+        kw = dict(QUEUE_KW, with_transcripts=kw["with_transcripts"])
+        want[route] = ref_pipeline.extend_segments(
+            S, T, inputs[route], use_pallas=False, **kw)
+    return S, T, inputs, want
+
+
+def _queued(monkeypatch, budget):
+    """The plan's launches two pairs each, ``PIPELINE_BYTES`` set to
+    ``budget`` (a number, or "one" / "all": the largest launch's bytes /
+    every launch's), and the order of dispatches (D) and finishes (F)
+    recorded."""
+    monkeypatch.setattr(pipeline, "LAUNCH_BYTES", 1)
+    order = []
+    dispatch, finish = pipeline._dispatch, pipeline._finish
+    monkeypatch.setattr(pipeline, "_dispatch", lambda *a: order.append("D")
+                        or dispatch(*a))
+    monkeypatch.setattr(pipeline, "_finish", lambda *a: order.append("F")
+                        or finish(*a))
+
+    def run(S, T, segments, **kw):
+        kw = dict(QUEUE_KW, **kw)
+        _, _, _, launches = pipeline.extension_plan(
+            segments, len(S), len(T), kw["with_transcripts"],
+            pad_a=kw["pad_a"], dirs_budget=kw["_dirs_budget"])
+        sizes = [pipeline.launch_bytes(len(idxs), LS, LT, W,
+                                       kw["with_transcripts"],
+                                       kw["_r_chunk"])
+                 for idxs, LS, LT, W in launches]
+        monkeypatch.setattr(pipeline, "PIPELINE_BYTES", {
+            "one": max(sizes), "all": sum(sizes)}.get(budget, budget))
+        out = pipeline.extend_segments(S, T, segments, device="cpu", **kw)
+        return out, launches
+
+    return run, order
+
+
+@pytest.mark.parametrize("budget", [0, "one", "all"])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_extend_segments_in_flight_budget_changes_nothing(
+        queue_case, monkeypatch, route, budget):
+    """Budgets of 0 (the serial order), one launch and every launch in
+    flight give the JAX package's output, byte for byte, on a plan of
+    window-split segments over many launches; 0 alternates dispatch and
+    finish, every launch in flight dispatches all first."""
+    S, T, inputs, want = queue_case
+    run, order = _queued(monkeypatch, budget)
+    got, launches = run(from_reference(S), from_reference(T), inputs[route],
+                        **ROUTES[route])
+    assert got == want[route]
+    assert len(launches) >= 3 and len(got) >= 20
+    n = len(launches)
+    if budget == 0:
+        assert order == ["D", "F"] * n
+    elif budget == "all":
+        assert order == ["D"] * n + ["F"] * n
+    assert sorted(order) == ["D"] * n + ["F"] * n
+    if route != "score_only":
+        _rescores(S, T, got)
+
+
+def test_in_flight_launch_with_a_bad_walk_raises_first(queue_case,
+                                                       monkeypatch):
+    """Every launch in flight, the second launch's walk corrupted (one
+    diagonal op turned into an insertion): its finish raises, and no
+    later launch's traces were compacted."""
+    import torch
+
+    S, T, inputs, _ = queue_case
+    run, order = _queued(monkeypatch, "all")
+    walks, compacted = [], []
+    walk = pipeline.traceback_walk
+
+    def corrupt(*args, **kwargs):
+        trace, fi, fj = walk(*args, **kwargs)
+        walks.append(1)
+        if len(walks) == 2:
+            trace = trace.clone()
+            row = int(torch.nonzero(trace[0, :, 0] & 3 == 1)[0, 0])
+            trace[0, row, 0] += 1
+        return trace, fi, fj
+
+    compact = native.compact_sweep_ops_t
+    monkeypatch.setattr(pipeline, "traceback_walk", corrupt)
+    monkeypatch.setattr(native, "compact_sweep_ops_t",
+                        lambda *a, **k: compacted.append(1)
+                        or compact(*a, **k))
+    with pytest.raises(RuntimeError, match="does not lead from the end"):
+        run(from_reference(S), from_reference(T), inputs["device_walk"],
+            with_transcripts=True)
+    n = order.count("D")
+    assert n >= 6 and len(walks) == n
+    assert order == ["D"] * n + ["F", "F"]
+    assert compacted == [1]
+
+
+def test_launch_bytes_counts_codes_and_plane():
+    """Codes of the padded batch, and with transcripts the dirs plane
+    ``[Apad // 2, B2, W]`` of the bucketed batch."""
+    assert pipeline.launch_bytes(3, 1024, 768, 256, False) == 8 * 1792
+    n_pad, apad = 4, 1920           # _bucket(3, 2); 1794 up to 128
+    assert pipeline.launch_bytes(3, 1024, 768, 256, True) == (
+        n_pad * 1792 + apad // 2 * (n_pad // 2) * 256)
+    assert pipeline.PIPELINE_BYTES >= 2 * pipeline.LAUNCH_BYTES
 
 
 @pytest.mark.parametrize("mini", [2, 8, 128])
