@@ -19,7 +19,15 @@ rewritten as a hand-written CUDA C++ kernel for Hopper (``csrc/*.cu``):
   all_vs_all_overlaps`, the sort-join engine :mod:`~biseqt_tpu_torch.
   ops.allvsall_sorted`, the (data, band) mesh over a
   ``torch.distributed`` group) and the batch tier of
-  :mod:`~biseqt_tpu_torch.stochastics` that makes their workloads;
+  :mod:`~biseqt_tpu_torch.stochastics` that makes their workloads, and
+  their resumable block-checkpointed sweep (:func:`biseqt_tpu_torch.
+  parallel.checkpointed_overlap_sweep`);
+* giant single pairs with the band split over the mesh's band axis
+  (:func:`biseqt_tpu_torch.parallel.banded_dp_band_sharded`, the row
+  engine; :func:`~biseqt_tpu_torch.parallel.banded_dp_band_sharded_ad`,
+  the antidiagonal engine, and :func:`~biseqt_tpu_torch.parallel.
+  band_sharded_ad_traceback`, its transcripts from checkpointed window
+  re-solves): plain PyTorch, edge lanes traded point to point;
 * two-tier protein search (:func:`biseqt_tpu_torch.protein.
   two_tier_scores`) on the antidiagonal DP kernel;
 * the two experiment probes (:mod:`biseqt_tpu_torch.experiments`): a

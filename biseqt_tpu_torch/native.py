@@ -7,7 +7,9 @@ against drift), and compiles it with the flags of the JAX package's
 directory the first time it is needed.  Bound: :func:`align` and
 :func:`traceback` (the host DP engine behind ``pw.Aligner(backend=
 "native")``), :func:`traceback_batch_ad` (the host walker over an
-antidiagonal dirs plane), :func:`compact_sweep_ops_t` (op traces ->
+antidiagonal dirs plane), :func:`traceback_ad_window_batch` (the
+resumable walker over one window of the band-sharded traceback),
+:func:`compact_sweep_ops_t` (op traces ->
 MSID transcripts) and :func:`fasta_pack` (the FASTA packer behind
 ``database.DB.load_fasta``).
 """
@@ -23,7 +25,7 @@ import numpy as np
 
 __all__ = [
     "available", "align", "traceback", "traceback_batch_ad",
-    "compact_sweep_ops_t", "dna_code_map", "fasta_pack",
+    "traceback_ad_window_batch", "compact_sweep_ops_t", "dna_code_map", "fasta_pack",
     "MODE_FREE_START_EDGES", "MODE_LOCAL_START",
     "MODE_FREE_END_EDGES", "MODE_LOCAL_END",
 ]
@@ -102,6 +104,15 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_traceback_ad_window_batch.restype = ctypes.c_int
+    lib.bst_traceback_ad_window_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.bst_compact_sweep_batch_t.restype = ctypes.c_int
     lib.bst_compact_sweep_batch_t.argtypes = [
@@ -249,6 +260,79 @@ def traceback_batch_ad(dirs, dminq, s_codes, t_codes, s_lens, t_lens,
             "AD traceback walk left the byte plane for pairs %s — wrong "
             "dminq, wrong end cell, or corrupted dirs" % bad[:8].tolist())
     return _decode(ops_buf, ops_len), start_i, start_j
+
+
+def traceback_ad_window_batch(dirs_win, a_base, dminq, s_codes, t_codes,
+                              io_i, io_j, io_state, io_done,
+                              ops_stride: int):
+    """One window of the band-sharded checkpointed traceback
+    (:func:`biseqt_tpu_torch.parallel.sharded_dp_ad.band_sharded_ad_traceback`).
+
+    ``dirs_win``: [B2, n_steps, W] UNPACKED direction bytes (numpy) of
+    antidiagonals ``a_base .. a_base + n_steps - 1`` (the window
+    re-solve's output; pairs (2*b2, 2*b2+1) share plane b2 on
+    complementary parities).  ``io_i`` / ``io_j`` / ``io_state`` /
+    ``io_done`` are int32 [B] walk cursors advanced IN PLACE; a live
+    pair's cursor must lie inside its matrix (the walker reads the
+    letters there without bounds).  Returns the list of per-pair
+    BACKWARD op segments emitted inside this window (empty for inactive
+    pairs); the caller concatenates segments across windows (newest
+    first) and reverses once.
+    """
+    lib = _load()
+    dirs_win = np.ascontiguousarray(dirs_win, np.uint8)
+    if dirs_win.ndim != 3:
+        raise ValueError("dirs_win must be [B2, n_steps, W], got %s"
+                         % (dirs_win.shape,))
+    b2_cols, n_steps, W = dirs_win.shape
+    s_codes = np.ascontiguousarray(s_codes, np.int8)
+    t_codes = np.ascontiguousarray(t_codes, np.int8)
+    dminq = np.ascontiguousarray(dminq, np.int32)
+    B = int(s_codes.shape[0])
+    if t_codes.shape[0] != B or dminq.shape[0] < B or 2 * b2_cols < B:
+        raise ValueError(
+            "window %s, dminq [%d] and codes %s / %s do not hold the same %d"
+            " pairs" % (dirs_win.shape, dminq.shape[0], s_codes.shape,
+                        t_codes.shape, B))
+    for name, cur in (("io_i", io_i), ("io_j", io_j),
+                      ("io_state", io_state), ("io_done", io_done)):
+        if not (isinstance(cur, np.ndarray) and cur.dtype == np.int32
+                and cur.flags["C_CONTIGUOUS"] and cur.flags["WRITEABLE"]
+                and cur.shape == (B,)):
+            raise ValueError("walk cursor %s must be a writeable contiguous"
+                             " int32 [%d] array (it is advanced in place)"
+                             % (name, B))
+    live = io_done == 0
+    bad = np.nonzero(live & ((io_i < 0) | (io_j < 0)
+                             | (io_i > s_codes.shape[1])
+                             | (io_j > t_codes.shape[1])
+                             | (io_state < 0) | (io_state > 2)))[0]
+    if bad.size:
+        raise ValueError("walk cursors outside their pair's matrix for pairs"
+                         " %s (i %s, j %s, state %s)"
+                         % (bad[:8].tolist(), io_i[bad[:8]].tolist(),
+                            io_j[bad[:8]].tolist(),
+                            io_state[bad[:8]].tolist()))
+    if ops_stride < s_codes.shape[1] + t_codes.shape[1] + 2:
+        raise ValueError("ops_stride %d is below LS + LT + 2" % ops_stride)
+    ops_buf = np.zeros((B, int(ops_stride)), np.uint8)
+    ops_len = np.zeros((B,), np.int32)
+    rc = lib.bst_traceback_ad_window_batch(
+        dirs_win.ctypes.data, n_steps, W, int(a_base), dminq.ctypes.data,
+        s_codes.ctypes.data, s_codes.shape[1],
+        t_codes.ctypes.data, t_codes.shape[1],
+        B, int(ops_stride),
+        io_i.ctypes.data, io_j.ctypes.data, io_state.ctypes.data,
+        io_done.ctypes.data, ops_buf.ctypes.data, ops_len.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError("bst_traceback_ad_window_batch failed (%d)" % rc)
+    bad = np.nonzero(ops_len < 0)[0]
+    if bad.size:
+        raise RuntimeError(
+            "AD window walk left the byte plane for pairs %s — wrong dminq,"
+            " wrong end cell, or corrupted dirs" % bad[:8].tolist())
+    return _decode(ops_buf, ops_len)
 
 
 def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,

@@ -45,7 +45,7 @@ def add_at(x: torch.Tensor, i, value: torch.Tensor):
         x.index_add_(0, i, value[None].to(x.dtype))
 
 
-def run_steps(step, state, steps: range):
+def run_steps(step, state, steps: range, graphs=None):
     """``state = step(a, a_now, state)`` for every ``a`` of ``steps``, in
     order; returns the last state.
 
@@ -56,36 +56,58 @@ def run_steps(step, state, steps: range):
     or, inside a CUDA graph, a one-element int64 tensor holding ``a``
     (index with :func:`take`, :func:`put` and :func:`add_at`).  It may
     write tensors it closes over, and must not copy from the host.
+
+    ``graphs``: a dict the caller keeps across calls of the same ``step``
+    over the same closed-over tensors (windows of one sweep).  The graph
+    captured by the first call is kept there, keyed by the first step's
+    residue mod 4, and later calls replay it from their first step
+    instead of running a chunk as written and capturing again.
     """
     state = tuple(state)
     chunk = GRAPH_CHUNK
-    if state[0].device.type != "cuda" or len(steps) < 2 * chunk:
+    key = (steps.start % 4, steps.step)
+    cached = graphs.get(key) if graphs is not None else None
+    if (state[0].device.type != "cuda" or len(steps) < chunk
+            or (cached is None and len(steps) < 2 * chunk)):
         for a in steps:
             state = step(a, a, state)
         return state
-    # the first chunk as written: it also makes every operation's first
-    # use, which a graph capture must not be
-    for a in steps[:chunk]:
-        state = step(a, a, state)
-    rest = steps[chunk:]
-    n_graphed = len(rest) // chunk * chunk
-    static = tuple(x.clone() for x in state)
-    counter = torch.tensor([rest[0]], dtype=torch.int64,
-                           device=state[0].device)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        st = static
-        for c in range(chunk):
-            st = step(rest[c], counter + c * steps.step, st)
-        for x, y in zip(static, st):
+    if cached is None:
+        # the first chunk as written: it also makes every operation's
+        # first use, which a graph capture must not be
+        for a in steps[:chunk]:
+            state = step(a, a, state)
+        rest = steps[chunk:]
+        static = tuple(x.clone() for x in state)
+        counter = torch.tensor([rest[0]], dtype=torch.int64,
+                               device=state[0].device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            st = static
+            for c in range(chunk):
+                st = step(rest[c], counter + c * steps.step, st)
+            for x, y in zip(static, st):
+                x.copy_(y)
+            counter.add_(chunk * steps.step)
+        if graphs is not None:
+            graphs[(rest[0] % 4, steps.step)] = (graph, static, counter)
+    else:
+        graph, static, counter = cached
+        for x, y in zip(static, state):
             x.copy_(y)
-        counter.add_(chunk * steps.step)
+        counter.fill_(steps.start)
+        rest = steps
+    n_graphed = len(rest) // chunk * chunk
     for _ in range(n_graphed // chunk):
         graph.replay()
-    # the graph's memory goes back to the allocator with it
-    torch.cuda.current_stream().synchronize()
-    del graph
-    state = static
+    if graphs is None:
+        # the graph's memory goes back to the allocator with it
+        torch.cuda.current_stream().synchronize()
+        del graph
+        state = static
+    else:
+        # the kept graph's inputs are overwritten by the next call
+        state = tuple(x.clone() for x in static)
     for a in rest[n_graphed:]:
         state = step(a, a, state)
     return state

@@ -4,7 +4,9 @@ The port of :mod:`biseqt_tpu.parallel.mesh`.  Axis conventions:
 
   * ``data`` — queries / alignment pairs (the embarrassingly parallel
     axis: each rank owns a block of rows);
-  * ``band`` — lanes of a single DP band (for giant pairs).
+  * ``band`` — lanes of a single DP band (for giant pairs: each rank
+    owns a block of lanes and trades its edge lanes with its band-axis
+    neighbours, :mod:`.sharded_dp`, :mod:`.sharded_dp_ad`).
 
 The ranks are those of the default ``torch.distributed`` process group,
 one card each.  Where a group is initialised, :func:`make_mesh` lays
@@ -55,6 +57,31 @@ class Mesh:
         if self.device_mesh is None:
             return None
         return self.device_mesh.get_group(DATA_AXIS)
+
+    @property
+    def band_rank(self) -> int:
+        """This rank's coordinate on the band axis."""
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(BAND_AXIS)
+
+    @property
+    def band_group(self):
+        """The process group of this rank's band axis (None for a world
+        of one)."""
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group(BAND_AXIS)
+
+    def band_peer(self, r: int) -> int:
+        """The global rank of band coordinate ``r`` of this rank's band
+        group: the peer of a point-to-point send."""
+        if self.device_mesh is None:
+            if r != 0:
+                raise ValueError("a world of one has no band coordinate %d"
+                                 % r)
+            return 0
+        return dist.get_global_rank(self.band_group, r)
 
     def __repr__(self):
         return "Mesh(data=%d, band=%d, device=%s)" % (

@@ -325,6 +325,14 @@ GENOME_JAX_CPU = dict(size=2000000, n_blocks=8, n_segments=7,
 # ones: 5 ops of 2,018,609 on this config (tests/test_torch_experiments.py
 # holds the port to the JAX script exactly at 20 kbp).
 GENOME_TX_TOL = dict(tx_total_ops=1e-4, tx_match_frac=1e-3)  # rel., abs.
+# phase 16: the band-sharded engines on a world-of-one mesh.  (a) phase
+# 6's 100 kbp pair, its band (-250, 250) laid out as the Aligner lays it
+# out for the antidiagonal kernel (W 512, the top 501 diagonals); (b) a
+# planted 20 kbp pair in a band of W 8192 (above the kernels' 4096); (c)
+# the checkpointed sweep over phase 13's recall reads
+SHARDED = dict(halo=64, ckpt_chunks=8, wide_len=20_000, wide_band=4095,
+               wide_seed=20261021, sweep_wordlen=8, sweep_block=64,
+               sweep_stop=8)
 # dp_ad.cu:222-297, score-only, local: per band cell 6 float adds (H +
 # go, the E and F wrap masks, diag, the lane mask, the tracker drift), 6
 # maxes (E, F, H twice, the local floor, the tracker) and the 2 gap-flag
@@ -1640,6 +1648,319 @@ def experiments_phase(dev, card, band_rows, ibb_row):
             "launches": launches}
 
 
+def sharded_phase(dev, card, core, mut, phase6, recall_reads):
+    """Phase 16: the band-sharded engines (``parallel.sharded_dp``,
+    ``parallel.sharded_dp_ad``) and the checkpointed sweep
+    (``parallel.sweep``) on the card, on a world-of-one mesh (one card:
+    the band axis has size 1, so no halo is exchanged).  (a) Phase 6's
+    100 kbp pair: the traceback in B_LOCAL (halo 64, checkpoints every 8
+    chunks) gives phase 6's native and row-kernel score exactly and a
+    transcript that rescores to it; on the first TWIN_PREFIX letters the
+    card equals the CPU (scores, checkpoints, transcript); both score
+    engines in B_GLOBAL give phase 6's B_GLOBAL score.  (b) A planted
+    20 kbp pair at W 8192: the traceback's score equals the C++ engine's
+    (``pw.Aligner(backend="native")``), its transcript rescores.  (c)
+    The sweep over phase 13's recall reads, stopped after 8 of its 16
+    blocks, resumed, one block deleted and resumed again: bit for bit
+    the same, and equal to one ``overlap_stats_block`` call (integer
+    fields exactly, p and s0 within STATS_TOL)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import profiling, pw
+    from biseqt_tpu_torch.parallel import (band_sharded_ad_traceback,
+                                           banded_dp_band_sharded,
+                                           banded_dp_band_sharded_ad,
+                                           checkpointed_overlap_sweep,
+                                           make_mesh)
+    from biseqt_tpu_torch.parallel.allvsall import overlap_stats_block
+    from biseqt_tpu_torch.parallel.sharded_dp_ad import _run_band_sharded_ad
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    t_phase = time.perf_counter()
+    sh = SHARDED
+    subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+    mesh = make_mesh(device=dev)
+    print("phase 16: mesh %s (one card: the band axis has size %d, no halo"
+          " is exchanged)" % (mesh, mesh.shape["band"]))
+    record = {"card": card, "calls": {}}
+
+    def layout(n_diag_lo, n_diag_hi):
+        """The Aligner's layout of the band (lo, hi) for the antidiagonal
+        kernel: W, dmin (the top W - 1 lanes' start) and w_eff."""
+        w_req = n_diag_hi - n_diag_lo + 1
+        W = pw._bucket(w_req + 1, mini=128)
+        return W, n_diag_hi - W + 1, w_req
+
+    def timed(label, fn, steps, unit, cells):
+        """``fn()`` on the host clock, synchronised, with the allocator's
+        peak above what was held and the traceback's spans (the forward
+        pass, the window re-solves with their copies to the host, the
+        host walk)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        before = profiling.counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        spans = {}
+        for name, v in profiling.counters().items():
+            was = before.get(name, {"seconds": 0.0, "calls": 0})
+            if name.startswith("sharded.") and v["calls"] > was["calls"]:
+                spans[name] = dict(seconds=v["seconds"] - was["seconds"],
+                                   calls=v["calls"] - was["calls"])
+        record["calls"][label] = dict(
+            wall_s=wall, steps=steps, unit=unit, us_per_step=wall * 1e6 / steps,
+            band_cells=cells, cells_per_s=cells / wall, peak_bytes=peak,
+            spans=spans)
+        print("%s (%s): %.3f s, %d %ss, %.2f us a %s, %.4g band cells/s,"
+              " peak %.1f MB allocated%s"
+              % (label, card, wall, steps, unit, wall * 1e6 / steps, unit,
+                 cells / wall, peak / 1e6,
+                 "".join("; %s %.3f s (%d calls)" % (k[8:], v["seconds"],
+                                                     v["calls"])
+                         for k, v in sorted(spans.items()))))
+        return out
+
+    def pair_args(s, t):
+        return (s[None, :], t[None, :], np.asarray([len(s)], np.int32),
+                np.asarray([len(t)], np.int32))
+
+    def check_transcript(label, ops, si, sj, s, t, want):
+        got, letters_ok = rescore(np, ops, s, t, si, sj, subst)
+        if got != want or not letters_ok:
+            fail("%s: the transcript rescores to %r (letters agree: %s),"
+                 " not %r" % (label, got, letters_ok, want))
+        return got
+
+    # (a) phase 6's 100 kbp pair
+    W, dmin, w_eff = layout(*PAIR_BAND)
+    args = pair_args(core, mut)
+    cells = len(core) * w_eff
+    kw = dict(W=W, subst=subst, go=GO, ge=GE, w_eff=[w_eff], mesh=mesh,
+              device=dev)
+    local = dict(kw, flags=pw._FLAGS[pw.B_LOCAL], halo=sh["halo"])
+    want_local = phase6["dna %s" % pw.B_LOCAL]
+    steps = len(core) + len(mut) + 1
+    # warm-up on a short prefix: the first CUDA graphs, allocator pools
+    band_sharded_ad_traceback(core[:2000][None, :], mut[:2000][None, :],
+                              [2000], [2000], [dmin], ckpt_chunks=2, **local)
+    scores, tx = timed("band_sharded_ad_traceback B_LOCAL 100 kbp",
+                       lambda: band_sharded_ad_traceback(
+                           *args, [dmin], ckpt_chunks=sh["ckpt_chunks"],
+                           **local), steps, "antidiagonal step", cells)
+    got = float(scores[0])
+    if not (got == want_local["native"] == want_local["row"]):
+        fail("band-sharded traceback B_LOCAL score %r, phase 6's native %r"
+             " and row kernel %r" % (got, want_local["native"],
+                                     want_local["row"]))
+    ops, si, sj = tx[0]
+    check_transcript("band-sharded traceback B_LOCAL", ops, si, sj, core,
+                     mut, got)
+    print("band-sharded traceback B_LOCAL: score %r == phase 6's native and"
+          " row kernel; %d ops from (%d, %d) rescore exactly"
+          % (got, len(ops), si, sj))
+    want_global = phase6["dna %s" % pw.B_GLOBAL]
+    glob = dict(kw, flags=pw._FLAGS[pw.B_GLOBAL])
+    ad = timed("banded_dp_band_sharded_ad B_GLOBAL 100 kbp",
+               lambda: banded_dp_band_sharded_ad(*args, [dmin],
+                                                 halo=sh["halo"], **glob),
+               steps, "antidiagonal step", cells)
+    # the row engine lays the band out as the row kernel does
+    row = timed("banded_dp_band_sharded B_GLOBAL 100 kbp",
+                lambda: banded_dp_band_sharded(*args, [dmin], **glob),
+                len(core), "row", cells)
+    got_ad, got_row = float(ad[0]), float(row[0])
+    if not (got_ad == got_row == want_global["native"]
+            == want_global["row"]):
+        fail("band-sharded B_GLOBAL scores: antidiagonal %r, row %r; phase"
+             " 6's native %r, row kernel %r" % (got_ad, got_row,
+                                               want_global["native"],
+                                               want_global["row"]))
+    print("band-sharded B_GLOBAL: antidiagonal engine %r, row engine %r =="
+          " phase 6's native and row kernel" % (got_ad, got_row))
+
+    # the card against the CPU on the first TWIN_PREFIX letters
+    n = TWIN_PREFIX
+    pre = pair_args(core[:n], mut[:n])
+    cpu_mesh = make_mesh(device="cpu")
+    on = []
+    for where, m in ((dev, mesh), (torch.device("cpu"), cpu_mesh)):
+        pkw = dict(local, mesh=m, device=where)
+        t0 = time.perf_counter()
+        fwd = _run_band_sharded_ad(*pre, [dmin], ckpt_every=sh["ckpt_chunks"],
+                                   **pkw)
+        tb = band_sharded_ad_traceback(*pre, [dmin],
+                                       ckpt_chunks=sh["ckpt_chunks"], **pkw)
+        on.append(([x.cpu() for x in fwd], tb, time.perf_counter() - t0))
+    (f_card, tb_card, s_card), (f_cpu, tb_cpu, s_cpu) = on
+    names = ("scores", "Me", "Mo", "Ae", "Ao", "checkpoints")
+    for name, a, b in zip(names, f_card, f_cpu):
+        if not torch.equal(a, b):
+            fail("band-sharded forward on the first %d letters: %s on the"
+                 " card differs from the CPU" % (n, name))
+    if not (np.array_equal(tb_card[0], tb_cpu[0]) and tb_card[1] == tb_cpu[1]):
+        fail("band-sharded traceback on the first %d letters: the card gives"
+             " %r, the CPU %r" % (n, tb_card, tb_cpu))
+    check_transcript("band-sharded traceback, first %d letters" % n,
+                     *tb_card[1][0], core[:n], mut[:n], float(tb_card[0][0]))
+    print("band-sharded B_LOCAL on the first %d letters: card == CPU (scores,"
+          " trackers, %d checkpoints, transcript of %d ops, score %r);"
+          " card %.1f s, CPU %.1f s (forward with checkpoints + traceback)"
+          % (n, f_card[5].shape[0], len(tb_card[1][0][0]),
+             float(tb_card[0][0]), s_card, s_cpu))
+
+    # (b) a planted pair in a band wider than the kernels' 4096 lanes
+    wr = np.random.default_rng(sh["wide_seed"])
+    L = sh["wide_len"]
+    ws = wr.integers(0, 4, L).astype(np.int8)
+    wt = mutate(np, wr, ws, 4, 0.10, 20, L // 20)
+    band = (-sh["wide_band"], sh["wide_band"])
+    Ww, wdmin, wweff = layout(*band)
+    if Ww != 8192:
+        fail("the wide band lays out at W %d, not 8192" % Ww)
+    A4 = Alphabet("ACGT")
+    with pw.Aligner(Sequence(A4, ws), Sequence(A4, wt),
+                    alnmode=pw.BANDED_MODE, alntype=pw.B_LOCAL,
+                    diag_range=band, subst_scores=subst, go_score=GO,
+                    ge_score=GE, backend="native", device=dev) as aln:
+        t0 = time.perf_counter()
+        want_wide = aln.solve()
+        native_s = time.perf_counter() - t0
+    wscores, wtx = timed(
+        "band_sharded_ad_traceback B_LOCAL W 8192",
+        lambda: band_sharded_ad_traceback(
+            *pair_args(ws, wt), [wdmin], W=Ww, subst=subst, go=GO, ge=GE,
+            w_eff=[wweff], flags=pw._FLAGS[pw.B_LOCAL], mesh=mesh,
+            halo=sh["halo"], ckpt_chunks=sh["ckpt_chunks"], device=dev),
+        len(ws) + len(wt) + 1, "antidiagonal step", len(ws) * wweff)
+    got_wide = float(wscores[0])
+    if got_wide != want_wide:
+        fail("band-sharded traceback at W 8192: %r, the C++ engine %r"
+             % (got_wide, want_wide))
+    wops, wsi, wsj = wtx[0]
+    check_transcript("band-sharded traceback at W 8192", wops, wsi, wsj, ws,
+                     wt, got_wide)
+    print("band-sharded traceback at W %d (band %s, %d x %d): score %r =="
+          " native.align's (%.2f s on the host); %d ops rescore exactly"
+          % (Ww, band, len(ws), len(wt), got_wide, native_s, len(wops)))
+
+    # (c) the checkpointed sweep over the recall reads
+    r_codes, r_lens, _ = recall_reads.get(timeout=300)
+    r_codes, r_lens = np.asarray(r_codes), np.asarray(r_lens)
+    skw = dict(wordlen=sh["sweep_wordlen"], block=sh["sweep_block"],
+               device=dev)
+    n_blocks = -(-len(r_codes) // sh["sweep_block"])
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        if done == sh["sweep_stop"]:
+            raise Stop
+
+    with tempfile.TemporaryDirectory() as td:
+        out_dir = os.path.join(td, "sweep")
+        t0 = time.perf_counter()
+        try:
+            checkpointed_overlap_sweep(r_codes, r_lens, out_dir,
+                                       progress=stop, **skw)
+            fail("the sweep's progress callback did not stop it")
+        except Stop:
+            pass
+        half_s = time.perf_counter() - t0
+        written = sorted(f for f in os.listdir(out_dir)
+                         if f.startswith("block_"))
+        if len(written) != sh["sweep_stop"]:
+            fail("the stopped sweep left %d blocks, not %d"
+                 % (len(written), sh["sweep_stop"]))
+        t0 = time.perf_counter()
+        full = checkpointed_overlap_sweep(r_codes, r_lens, out_dir, **skw)
+        rest_s = time.perf_counter() - t0
+        os.remove(os.path.join(out_dir, "block_%05d.npz" % 3))
+        again = checkpointed_overlap_sweep(r_codes, r_lens, out_dir, **skw)
+    for k in full:
+        if not np.array_equal(full[k], again[k]):
+            fail("the resumed sweep differs from the first in %s" % k)
+    t0 = time.perf_counter()
+    whole = overlap_stats_block(r_codes, r_lens, r_codes, r_lens,
+                                wordlen=sh["sweep_wordlen"], device=dev)
+    whole = {k: v.cpu().numpy() for k, v in whole.items()}
+    whole_s = time.perf_counter() - t0
+    sweep_err = stats_equal(np, full, whole, ("num_seeds", "diag",
+                                              "olap_len"),
+                            "the sweep against one overlap_stats_block")
+    print("checkpointed sweep (%s): %d reads, %d blocks of %d, stopped after"
+          " %d (%.2f s), finished (%.2f s), block 3 deleted and resumed: bit"
+          " for bit; == one overlap_stats_block (%.2f s; integers exactly,"
+          " p/s0 max |d| %.3g)" % (card, len(r_codes), n_blocks,
+                                   sh["sweep_block"], sh["sweep_stop"],
+                                   half_s, rest_s, whole_s, sweep_err))
+    record["sweep"] = dict(reads=len(r_codes), blocks=n_blocks,
+                           stopped_s=half_s, finished_s=rest_s,
+                           one_block_s=whole_s, max_abs_err=sweep_err)
+    phase_s = time.perf_counter() - t_phase
+    record["phase_s"] = phase_s
+    print("sharded: " + json.dumps(record))
+    print("phase 16: %.1f s" % phase_s)
+
+
+def sharded_alone():
+    """Phase 16 alone, on a pair made as phase 6 makes its DNA pair (its
+    B_GLOBAL and B_LOCAL scores from the C++ engine, standing in for
+    phase 6's) and the recall reads simulated in a worker process:
+
+        python3 -c 'import chip_smoke; chip_smoke.sharded_alone()'
+    """
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import native, pw
+    from biseqt_tpu_torch.experiments.overlap_recall import simulate_packed
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        recall_reads = pool.apply_async(simulate_packed, (
+            RECALL["seed"], RECALL["genome_len"], RECALL["read_len"],
+            RECALL["n_reads"], RECALL["err"]))
+        if not native.available():
+            fail("the C++ host tier (pwnative.cpp) did not build")
+        rng = np.random.default_rng(20261016)
+        core = rng.integers(0, 4, PAIR_LEN).astype(np.int8)
+        mut = mutate(np, rng, core, 4, 0.10, 40, 1000)
+        A4 = Alphabet("ACGT")
+        subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+        phase6 = {}
+        for alntype in (pw.B_GLOBAL, pw.B_LOCAL):
+            with pw.Aligner(Sequence(A4, core), Sequence(A4, mut),
+                            alnmode=pw.BANDED_MODE, alntype=alntype,
+                            diag_range=PAIR_BAND, subst_scores=subst,
+                            go_score=GO, ge_score=GE, backend="native",
+                            device=dev) as aln:
+                score = aln.solve()
+            phase6["dna %s" % alntype] = {"row": score, "native": score}
+        sharded_phase(dev, card, core, mut, phase6, recall_reads)
+    finally:
+        pool.terminate()
+        pool.join()
+    print(card)
+
+
 def main():
     import torch
 
@@ -1919,6 +2240,7 @@ def run(recall_reads, band_rows):
     pairs = []
     core = rng.integers(0, 4, PAIR_LEN).astype(np.int8)
     mut = mutate(np, rng, core, 4, 0.10, 40, 1000)
+    dna_pair = (core, mut)            # phase 16 aligns it again
     for alntype in pw.BANDED_TYPES:
         pairs.append(("dna %s" % alntype, Sequence(A4, core),
                       Sequence(A4, mut), alntype, PAIR_BAND, None, GO, GE))
@@ -1956,6 +2278,7 @@ def run(recall_reads, band_rows):
              " launches for %d solves and tracebacks"
              % (row_launches, 2 * len(pairs)))
     row_err = 0.0
+    phase6 = {}
     for (name, S, T, alntype, band, psub, go, ge), got in zip(pairs,
                                                               row_out):
         score, alignment, subst_np, t_solve, t_tb = got
@@ -1973,6 +2296,7 @@ def run(recall_reads, band_rows):
                  " rescored transcript %r" % (name, score, ref[0], ad[0],
                                              rescored))
         row_err = max(row_err, abs(score - ref[0]))
+        phase6[name] = {"row": score, "native": ref[0]}
         if alignment.transcript.origin_len < 0.9 * len(S) \
                 and alntype != pw.B_LOCAL:
             fail("%s: the transcript covers too little of S" % name)
@@ -2252,6 +2576,9 @@ def run(recall_reads, band_rows):
 
     # -- 15. the experiments at their default configs -----------------
     experiments = experiments_phase(dev, card, band_rows, overlap["row"])
+
+    # -- 16. the band-sharded engines and the checkpointed sweep --------
+    sharded_phase(dev, card, *dna_pair, phase6, recall_reads)
 
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",

@@ -940,3 +940,83 @@ def test_two_tier_card_matches_cpu(rng, card, threshold):
         assert torch.equal(got.full.score.cpu(), want.full.score)
     else:
         assert got.full is None and launches == 1
+
+
+def _sharded_pairs(rng, B, L):
+    """Ragged homologous pairs (15% substitutions, T shifted by a few
+    letters) for the band-sharded engines."""
+    ss = rng.integers(0, 4, (B, L)).astype(np.int8)
+    ts = np.roll(ss, rng.integers(-3, 4), axis=1)
+    m = rng.random((B, L)) < 0.15
+    ts[m] = (ts[m] + 1 + rng.integers(0, 3, m.sum())) % 4
+    s_lens = (L - rng.integers(0, L // 10, B)).astype(np.int32)
+    t_lens = (L - rng.integers(0, L // 10, B)).astype(np.int32)
+    return ss, ts, s_lens, t_lens
+
+
+# (B, L, W, halo, ckpt_chunks): the CPU tests' size (windows of 32 steps,
+# run as written), and windows of 256 steps (a CUDA graph captured in the
+# first window and replayed in every later one) over 700 letters
+SHARDED_SHAPES = [(3, 150, 256, 16, 2), (2, 700, 256, 64, 4)]
+
+
+@pytest.mark.parametrize("shape", SHARDED_SHAPES)
+@pytest.mark.parametrize("flags", FLAG_CASES[:3])
+def test_band_sharded_engines_card_match_cpu(rng, card, flags, shape):
+    """The row engine, the antidiagonal engine (scores; with
+    checkpoints: the band-gathered trackers and the checkpoints) and
+    the traceback on a world-of-one mesh on the card equal the same
+    calls on the CPU exactly."""
+    from biseqt_tpu_torch.parallel import (band_sharded_ad_traceback,
+                                           banded_dp_band_sharded,
+                                           banded_dp_band_sharded_ad,
+                                           make_mesh)
+    from biseqt_tpu_torch.parallel.sharded_dp_ad import _run_band_sharded_ad
+
+    B, L, W, halo, m = shape
+    args = _sharded_pairs(rng, B, L) + (np.full((B,), -W // 2, np.int32),)
+    w_eff = np.full((B,), W - 5, np.int32)
+    out = []
+    for device in (card, torch.device("cpu")):
+        kw = dict(W=W, subst=UNIT, go=-2.0, ge=-1.0,
+                  flags=ModeFlags(**flags), w_eff=w_eff,
+                  mesh=make_mesh(device=device), device=device)
+        row = banded_dp_band_sharded(*args, **kw)
+        ad = banded_dp_band_sharded_ad(*args, halo=halo, **kw)
+        fwd = _run_band_sharded_ad(*args, halo=halo, ckpt_every=m, **kw)
+        tb = band_sharded_ad_traceback(*args, halo=halo, ckpt_chunks=m, **kw)
+        assert row.device == ad.device == device
+        out.append(([row.cpu(), ad.cpu()] + [x.cpu() for x in fwd], tb))
+    (got, got_tb), (want, want_tb) = out
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert np.array_equal(got_tb[0], want_tb[0]) and got_tb[1] == want_tb[1]
+
+
+def test_checkpointed_sweep_card_matches_cpu(rng, card, tmp_path):
+    """The checkpointed sweep on the card (stopped after one block and
+    resumed) equals the sweep on the CPU: integer fields exactly, p and
+    s0 within rtol 1e-5, atol 1e-6."""
+    from biseqt_tpu_torch.parallel import checkpointed_overlap_sweep
+
+    codes, lens = _tiled_reads(rng, 24, 20_000, 3000)
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        if done == 1:
+            raise Stop
+
+    with pytest.raises(Stop):
+        checkpointed_overlap_sweep(codes, lens, str(tmp_path / "card"),
+                                   block=8, progress=stop, device=card)
+    got = checkpointed_overlap_sweep(codes, lens, str(tmp_path / "card"),
+                                     block=8, device=card)
+    want = checkpointed_overlap_sweep(codes, lens, str(tmp_path / "cpu"),
+                                      block=8, device="cpu")
+    for k in ("num_seeds", "diag", "olap_len"):
+        assert np.array_equal(got[k], want[k]), k
+    for k in ("p", "s0"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)

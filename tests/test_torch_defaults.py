@@ -30,7 +30,8 @@ from biseqt_tpu_torch.experiments import (fixed_ref_bench, genome_homology,
                                           wordblot_recall)
 from biseqt_tpu_torch.ops import (allvsall_sorted, banded_dp, blot_stats,
                                   dp_ad, dp_row, tables, walk)
-from biseqt_tpu_torch.parallel import allvsall, mesh
+from biseqt_tpu_torch.parallel import (allvsall, mesh, sharded_dp,
+                                       sharded_dp_ad, sweep)
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,6 +221,14 @@ _BATCH_CALLS = {
             torch.Generator(), 2, 30, 0.1, 0.05, 0.2, device="cpu"), 0.2,
         **kw),
 }
+def _sweep(**kw):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        return sweep.checkpointed_overlap_sweep(_READS, _READ_LENS, out_dir,
+                                                wordlen=4, block=2, **kw)
+
+
 _OVERLAP_CALLS = {
     "overlap_stats_sorted": (allvsall_sorted, lambda **kw:
                              allvsall_sorted.overlap_stats_sorted(
@@ -243,6 +252,19 @@ _OVERLAP_CALLS = {
     "all_vs_all_overlaps": (allvsall, lambda **kw:
                             allvsall.all_vs_all_overlaps(
                                 _READS, _READ_LENS, wordlen=4, **kw)),
+    "banded_dp_band_sharded": (sharded_dp, lambda **kw:
+                               sharded_dp.banded_dp_band_sharded(
+                                   *_pairs(), [-8, -8], W=32, **_dp_kw(),
+                                   **kw)),
+    "banded_dp_band_sharded_ad": (sharded_dp_ad, lambda **kw:
+                                  sharded_dp_ad.banded_dp_band_sharded_ad(
+                                      *_pairs(), [-8, -8], W=32, halo=8,
+                                      **_dp_kw(), **kw)),
+    "band_sharded_ad_traceback": (sharded_dp_ad, lambda **kw:
+                                  sharded_dp_ad.band_sharded_ad_traceback(
+                                      *_pairs(), [-8, -8], W=32, halo=8,
+                                      ckpt_chunks=2, **_dp_kw(), **kw)),
+    "checkpointed_overlap_sweep": (sweep, _sweep),
     "two_tier_scores": (protein, lambda **kw: protein.two_tier_scores(
         _PROTEIN, _PROTEIN, [40, 40], [40, 40], [-8, -8], W=128,
         go=-11.0, ge=-1.0, w_eff=[17, 17], threshold=10.0,
@@ -391,8 +413,10 @@ def test_every_port_module_imports_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     count, ok = out.stdout.split()
-    assert ok == "ok" and int(count) >= 41
+    assert ok == "ok" and int(count) >= 44
     for module in ("protein", "parallel.mesh", "parallel.allvsall",
+                   "parallel.sharded_dp", "parallel.sharded_dp_ad",
+                   "parallel.sweep",
                    "ops.allvsall_sorted", "experiments.util",
                    "experiments.figures", "experiments.band_radius_stats",
                    "experiments.wordblot_recall",
