@@ -6,12 +6,14 @@ against drift), and compiles it with the flags of the JAX package's
 ``native/Makefile`` into this package's git-ignored ``build/``
 directory the first time it is needed.  Bound: :func:`align` and
 :func:`traceback` (the host DP engine behind ``pw.Aligner(backend=
-"native")``), :func:`traceback_batch_ad` (the host walker over an
-antidiagonal dirs plane), :func:`traceback_ad_window_batch` (the
-resumable walker over one window of the band-sharded traceback),
-:func:`compact_sweep_ops_t` (op traces ->
-MSID transcripts) and :func:`fasta_pack` (the FASTA packer behind
-``database.DB.load_fasta``).
+"native")``), :func:`traceback_batch` (the host walker over the row
+engine's dirs planes, the row route of ``pipeline.extend_segments``),
+:func:`traceback_batch_ad` (the host walker over an antidiagonal dirs
+plane), :func:`traceback_ad_window_batch` (the resumable walker over one
+window of the band-sharded traceback), :func:`compact_sweep_ops_t` and
+:func:`compact_sweep_ops` (op traces -> MSID transcripts, in the walk
+kernel's layout and in the JAX package's sublane walk's) and
+:func:`fasta_pack` (the FASTA packer behind ``database.DB.load_fasta``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ import tempfile
 import numpy as np
 
 __all__ = [
-    "available", "align", "traceback", "traceback_batch_ad",
-    "traceback_ad_window_batch", "compact_sweep_ops_t", "dna_code_map", "fasta_pack",
+    "available", "align", "traceback", "traceback_batch",
+    "traceback_batch_ad", "traceback_ad_window_batch", "compact_sweep_ops",
+    "compact_sweep_ops_t", "dna_code_map", "fasta_pack",
     "MODE_FREE_START_EDGES", "MODE_LOCAL_START",
     "MODE_FREE_END_EDGES", "MODE_LOCAL_END",
 ]
@@ -96,6 +99,14 @@ def _load():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.bst_traceback_batch.restype = ctypes.c_int
+    lib.bst_traceback_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.bst_traceback_ad_batch.restype = ctypes.c_int
     lib.bst_traceback_ad_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -112,6 +123,14 @@ def _load():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bst_compact_sweep_batch.restype = ctypes.c_int
+    lib.bst_compact_sweep_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.bst_compact_sweep_batch_t.restype = ctypes.c_int
@@ -213,6 +232,77 @@ def traceback(dirs, dmax, s, t, end_i, end_j, mode_flags):
 def _decode(ops_buf, ops_len):
     return [ops_buf[b, : ops_len[b]].tobytes().decode("ascii")
             for b in range(ops_buf.shape[0])]
+
+
+def traceback_batch(dirs, dmax, s_codes, t_codes, s_lens, t_lens, end_i,
+                    end_j, mode_flags):
+    """Batched host traceback over the row engine's direction bytes.
+
+    ``dirs``: [B, rows, W] uint8 (numpy), the lax-format planes of
+    :func:`biseqt_tpu_torch.ops.banded_dp.banded_dp` (row r = DP row
+    r + 1, lane k the diagonal ``dmax - k``); ``dmax``: each pair's top
+    diagonal [B], ``dmin + W - 1``; ``end_i`` / ``end_j``: the engine's
+    end cells [B].  Every per-pair array holds exactly the plane's B
+    pairs, and each end cell lies inside its pair's matrix, which lies
+    inside the plane and the codes, or ``ValueError`` is raised.  A walk
+    that leaves the band (a wrong ``dmax`` or end cell, a corrupted
+    plane) raises ``RuntimeError``.  Returns ``(ops list[str], start_i
+    int32[B], start_j int32[B])``.
+    """
+    lib = _load()
+    dirs = np.ascontiguousarray(dirs, np.uint8)
+    if dirs.ndim != 3:
+        raise ValueError("dirs must be [B, rows, W], got %s" % (dirs.shape,))
+    B, rows, W = dirs.shape
+    s_codes = np.ascontiguousarray(s_codes, np.int8)
+    t_codes = np.ascontiguousarray(t_codes, np.int8)
+    i32 = lambda x: np.ascontiguousarray(x, np.int32)
+    dmax, s_lens, t_lens, end_i, end_j = map(
+        i32, (dmax, s_lens, t_lens, end_i, end_j))
+    if (s_codes.ndim != 2 or t_codes.ndim != 2
+            or s_codes.shape[0] != B or t_codes.shape[0] != B
+            or any(x.shape != (B,)
+                   for x in (dmax, s_lens, t_lens, end_i, end_j))):
+        raise ValueError(
+            "the plane holds %d pairs; codes %s / %s, dmax, lengths and end"
+            " cells %s must hold as many" % (
+                B, s_codes.shape, t_codes.shape,
+                [x.shape for x in (dmax, s_lens, t_lens, end_i, end_j)]))
+    bad = np.nonzero((end_i < 0) | (end_j < 0) | (end_i > s_lens)
+                     | (end_j > t_lens)
+                     | (s_lens > min(rows, s_codes.shape[1]))
+                     | (t_lens > t_codes.shape[1]))[0]
+    if bad.size:
+        raise ValueError(
+            "end cells outside their pair's matrix, or a matrix larger than"
+            " the plane or the codes, for pairs %s (end %s, %s; lengths %s,"
+            " %s; plane rows %d)" % (
+                bad[:8].tolist(), end_i[bad[:8]].tolist(),
+                end_j[bad[:8]].tolist(), s_lens[bad[:8]].tolist(),
+                t_lens[bad[:8]].tolist(), rows))
+    ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
+    ops_buf = np.zeros((B, ops_stride), np.uint8)
+    start_i = np.zeros((B,), np.int32)
+    start_j = np.zeros((B,), np.int32)
+    ops_len = np.zeros((B,), np.int32)
+    rc = lib.bst_traceback_batch(
+        dirs.ctypes.data, rows, W, dmax.ctypes.data,
+        s_codes.ctypes.data, s_codes.shape[1],
+        t_codes.ctypes.data, t_codes.shape[1],
+        s_lens.ctypes.data, t_lens.ctypes.data,
+        end_i.ctypes.data, end_j.ctypes.data,
+        _flags_of(mode_flags), B, ops_stride,
+        ops_buf.ctypes.data, start_i.ctypes.data, start_j.ctypes.data,
+        ops_len.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError("bst_traceback_batch failed (%d)" % rc)
+    bad = np.nonzero(ops_len < 0)[0]
+    if bad.size:
+        raise RuntimeError(
+            "traceback walk left the direction plane for pairs %s — wrong "
+            "dmax, wrong end cell, or corrupted dirs" % bad[:8].tolist())
+    return _decode(ops_buf, ops_len), start_i, start_j
 
 
 def traceback_batch_ad(dirs, dminq, s_codes, t_codes, s_lens, t_lens,
@@ -335,35 +425,23 @@ def traceback_ad_window_batch(dirs_win, a_base, dminq, s_codes, t_codes,
     return _decode(ops_buf, ops_len)
 
 
-def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
-                        t_lens, mode_flags, *, moves=None):
-    """Turn the walk's op traces into MSID transcripts.
-
-    ``trace``: [2, Atr, B2cols] uint8 (numpy) from
-    :func:`biseqt_tpu_torch.ops.walk.traceback_walk` — pair b owns
-    column b // 2 of plane b % 2; ``fin_i`` / ``fin_j``: the walk's
-    final cursors [B] (-1 = skipped pair).  The C++ replay moves its
-    cursors once per op from ``(fin_i, fin_j)`` and reads the letters
-    there without bounds, so a faulty walk would otherwise read a
-    neighbouring pair's row: every live pair must stay inside its
-    matrix, ``fin_i + di <= s_len`` and ``fin_j + dj <= t_len`` (and
-    ``fin >= 0``), where ``moves = (di, dj)`` [B] are the trace's moves
-    (:func:`biseqt_tpu_torch.ops.walk.trace_moves`), counted here from
-    ``trace`` when not given.  Raises ``ValueError`` otherwise.  Returns
-    ``(ops list[str], start_i, start_j)``.
-    """
-    lib = _load()
-    trace = np.ascontiguousarray(trace, np.uint8)
-    if trace.ndim != 3 or trace.shape[0] != 2:
-        raise ValueError("trace must be [2, Atr, B2cols], got %s"
-                         % (trace.shape,))
-    _, atr, b2_cols = trace.shape
+def _replay_inputs(trace, fin_i, fin_j, s_codes, t_codes, s_lens, t_lens,
+                   moves):
+    """The compactors' inputs, made contiguous and checked: ``trace`` in
+    the lane-packed layout [2, Atr, B2cols] (pair b owns column b // 2
+    of plane b % 2).  The C++ replay moves its cursors once per op from
+    ``(fin_i, fin_j)`` and reads the letters there without bounds, so
+    every live pair must stay inside its matrix: ``0 <= fin``,
+    ``fin_i + di <= s_len`` and ``fin_j + dj <= t_len``, where ``moves
+    = (di, dj)`` [B] are the trace's moves, counted from ``trace`` when
+    not given; ``ValueError`` otherwise.  Returns ``(s_codes, t_codes,
+    fin_i, fin_j)``."""
     s_codes = np.ascontiguousarray(s_codes, np.int8)
     t_codes = np.ascontiguousarray(t_codes, np.int8)
     fin_i = np.ascontiguousarray(fin_i, np.int32)
     fin_j = np.ascontiguousarray(fin_j, np.int32)
     B = int(s_codes.shape[0])
-    if 2 * b2_cols < B or fin_i.shape[0] < B or fin_j.shape[0] < B:
+    if 2 * trace.shape[2] < B or fin_i.shape[0] < B or fin_j.shape[0] < B:
         raise ValueError("trace %s / cursors too small for %d pairs"
                          % (trace.shape, B))
     s_lens = np.asarray(s_lens, np.int64)[:B]
@@ -393,6 +471,58 @@ def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
             "(from (%s, %s) by (%s, %s) moves)"
             % (bad[:8].tolist(), fi[bad[:8]].tolist(), fj[bad[:8]].tolist(),
                di[bad[:8]].tolist(), dj[bad[:8]].tolist()))
+    return s_codes, t_codes, fin_i, fin_j
+
+
+def _replayed(name, rc, ops_buf, ops_len, fin_i, fin_j, mode_flags):
+    """A compactor's ``(ops, start_i, start_j)``: anchored modes prepend
+    D^i I^j tails, so the reported start is (0, 0); skipped pairs keep
+    -1.  A failed call or an overrun replay raises ``RuntimeError``."""
+    if rc != 0:
+        raise RuntimeError("%s failed (%d)" % (name, rc))
+    bad = np.nonzero(ops_len < 0)[0]
+    if bad.size:
+        raise RuntimeError(
+            "sweep trace replay overran for pairs %s — corrupted trace or "
+            "mismatched final cursors" % bad[:8].tolist())
+    B = ops_buf.shape[0]
+    f = _flags_of(mode_flags)
+    anchored = not (f & (MODE_LOCAL_START | MODE_FREE_START_EDGES))
+    si = fin_i[:B].copy()
+    sj = fin_j[:B].copy()
+    if anchored:
+        started = si >= 0
+        si[started] = 0
+        sj[started] = 0
+    return _decode(ops_buf, ops_len), si, sj
+
+
+def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
+                        t_lens, mode_flags, *, moves=None):
+    """Turn the walk's op traces into MSID transcripts.
+
+    ``trace``: [2, Atr, B2cols] uint8 (numpy) from
+    :func:`biseqt_tpu_torch.ops.walk.traceback_walk` — pair b owns
+    column b // 2 of plane b % 2; ``fin_i`` / ``fin_j``: the walk's
+    final cursors [B] (-1 = skipped pair).  The C++ replay moves its
+    cursors once per op from ``(fin_i, fin_j)`` and reads the letters
+    there without bounds, so a faulty walk would otherwise read a
+    neighbouring pair's row: every live pair must stay inside its
+    matrix, ``fin_i + di <= s_len`` and ``fin_j + dj <= t_len`` (and
+    ``fin >= 0``), where ``moves = (di, dj)`` [B] are the trace's moves
+    (:func:`biseqt_tpu_torch.ops.walk.trace_moves`), counted here from
+    ``trace`` when not given.  Raises ``ValueError`` otherwise.  Returns
+    ``(ops list[str], start_i, start_j)``.
+    """
+    lib = _load()
+    trace = np.ascontiguousarray(trace, np.uint8)
+    if trace.ndim != 3 or trace.shape[0] != 2:
+        raise ValueError("trace must be [2, Atr, B2cols], got %s"
+                         % (trace.shape,))
+    _, atr, b2_cols = trace.shape
+    s_codes, t_codes, fin_i, fin_j = _replay_inputs(
+        trace, fin_i, fin_j, s_codes, t_codes, s_lens, t_lens, moves)
+    B = int(s_codes.shape[0])
     ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
     ops_buf = np.zeros((B, ops_stride), np.uint8)
     ops_len = np.zeros((B,), np.int32)
@@ -404,24 +534,48 @@ def compact_sweep_ops_t(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
         _flags_of(mode_flags), B, ops_stride,
         ops_buf.ctypes.data, ops_len.ctypes.data,
     )
-    if rc != 0:
-        raise RuntimeError("bst_compact_sweep_batch_t failed (%d)" % rc)
-    bad = np.nonzero(ops_len < 0)[0]
-    if bad.size:
-        raise RuntimeError(
-            "sweep trace replay overran for pairs %s — corrupted trace or "
-            "mismatched final cursors" % bad[:8].tolist())
-    # anchored modes prepend D^i I^j tails, so the reported start is
-    # (0, 0); skipped pairs keep -1
-    f = _flags_of(mode_flags)
-    anchored = not (f & (MODE_LOCAL_START | MODE_FREE_START_EDGES))
-    si = fi.copy()
-    sj = fj.copy()
-    if anchored:
-        started = fi >= 0
-        si[started] = 0
-        sj[started] = 0
-    return _decode(ops_buf, ops_len), si, sj
+    return _replayed("bst_compact_sweep_batch_t", rc, ops_buf, ops_len,
+                     fin_i, fin_j, mode_flags)
+
+
+def compact_sweep_ops(trace0, trace1, fin_i, fin_j, s_codes, t_codes,
+                      s_lens, t_lens, mode_flags, *, moves=None):
+    """Turn the JAX package's sublane walk's op traces into MSID
+    transcripts (the counterpart of its ``native.compact_sweep_ops``).
+
+    ``trace0`` / ``trace1``: [B2, Atr] uint8 (numpy), the two traces of
+    ``biseqt_tpu.ops.pallas_walk.traceback_sweep`` — pair b owns row
+    b // 2 of trace ``b % 2``; ``fin_i`` / ``fin_j``: the walk's final
+    cursors [B] (-1 = skipped pair).  The port's walk writes the
+    lane-packed layout (:func:`compact_sweep_ops_t`); no path of the
+    port makes this one.  Cursors and moves are checked as
+    :func:`compact_sweep_ops_t` checks them (``ValueError``).  Returns
+    ``(ops list[str], start_i, start_j)``.
+    """
+    lib = _load()
+    trace0 = np.ascontiguousarray(trace0, np.uint8)
+    trace1 = np.ascontiguousarray(trace1, np.uint8)
+    if trace0.ndim != 2 or trace0.shape != trace1.shape:
+        raise ValueError("trace0 / trace1 must both be [B2, Atr], got %s /"
+                         " %s" % (trace0.shape, trace1.shape))
+    atr = int(trace0.shape[1])
+    s_codes, t_codes, fin_i, fin_j = _replay_inputs(
+        np.stack([trace0.T, trace1.T]), fin_i, fin_j, s_codes, t_codes,
+        s_lens, t_lens, moves)
+    B = int(s_codes.shape[0])
+    ops_stride = int(s_codes.shape[1] + t_codes.shape[1] + 2)
+    ops_buf = np.zeros((B, ops_stride), np.uint8)
+    ops_len = np.zeros((B,), np.int32)
+    rc = lib.bst_compact_sweep_batch(
+        trace0.ctypes.data, trace1.ctypes.data, atr,
+        s_codes.ctypes.data, s_codes.shape[1],
+        t_codes.ctypes.data, t_codes.shape[1],
+        fin_i.ctypes.data, fin_j.ctypes.data,
+        _flags_of(mode_flags), B, ops_stride,
+        ops_buf.ctypes.data, ops_len.ctypes.data,
+    )
+    return _replayed("bst_compact_sweep_batch", rc, ops_buf, ops_len,
+                     fin_i, fin_j, mode_flags)
 
 
 def dna_code_map(letters: str = "ACGT", lowercase: bool = True):

@@ -10,6 +10,8 @@ walk :func:`traceback_path`.
 The engine is plain PyTorch on any device: a ``[B, W]`` state, a Python
 loop over rows, the JAX package's float operations in its order, so
 scores, end cells and direction bytes equal the reference's exactly.
+On a card the loop's rows are replayed from CUDA graphs
+(:func:`.steps.run_steps`), each row's index read from the device.
 
   * In banded mode lane ``k`` is the diagonal ``d = dmax - k``; at row
     ``i`` it holds cell ``(i, j = i - dmax + k)``.  Diag (i-1, j-1) is the
@@ -32,6 +34,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .steps import put, run_steps
 
 NEG = -1e30  # finite -inf; float32(NEG) is what the kernels carry
 
@@ -219,10 +223,13 @@ class _Sweep:
         self.s, self.B, self.LS, self.LT = s, B, LS, LT
         self.s_lens, self.t_lens = i32(s_lens), i32(t_lens)
         self.flags, self.banded = flags, banded
-        self.subst = torch.as_tensor(np.asarray(subst, np.float32),
-                                     device=dev)
-        self.go = torch.tensor(np.float32(go), device=dev)
-        self.ge = torch.tensor(np.float32(ge), device=dev)
+        # through on_device: a copy from pageable memory would wait for
+        # the work queued on the card (the row route of extend_segments
+        # keeps launches in flight)
+        self.subst = on_device(np.asarray(subst, np.float32), torch.float32,
+                               dev)
+        self.go = on_device(np.float32(go), torch.float32, dev)
+        self.ge = on_device(np.float32(ge), torch.float32, dev)
         if banded:
             self.W = int(W)
             self.dmax = i32(dmin) + (self.W - 1)
@@ -269,18 +276,24 @@ class _Sweep:
         H0 = torch.where(self.karange < self.w_eff[:, None], H0, NEG)
         return H0, torch.full_like(H0, NEG)
 
-    def row(self, H_prev, F_prev, i: int, with_dirs: bool):
-        """Row i (1-based) from row i - 1; rows past a pair's length
+    def row(self, H_prev, F_prev, i, with_dirs: bool):
+        """Row i (1-based; an int, or a one-element int32 device tensor
+        in a CUDA graph) from row i - 1; rows past a pair's length
         freeze.  Returns (H, F, H masked to valid cells, dirs|None)."""
         row_valid = (i <= self.s_lens)[:, None]
         j_idx = self.j_of(i)
         cell_valid = self.valid(j_idx) & row_valid
-        s_char = self.s[:, min(i - 1, self.LS - 1)][:, None]
-        if self.banded:
+        if isinstance(i, int):
+            s_char = self.s[:, min(i - 1, self.LS - 1)][:, None]
+        else:
+            s_char = self.s.index_select(1, i - 1)
+        if not self.banded:
+            t_win = self.t_cols
+        elif isinstance(i, int):
             # window start i - 1 is the same for every pair
             t_win = self.t2[:, i - 1:i - 1 + self.W]
         else:
-            t_win = self.t_cols
+            t_win = self.t2.index_select(1, self.karange[0] + (i - 1))
         sub = _subst_lookup(self.subst, s_char, t_win)
         H, F, dirs = _row_update(
             H_prev, F_prev, sub, cell_valid, j_idx, self.go, self.ge,
@@ -330,6 +343,8 @@ def _solve(sw: _Sweep, with_dirs: bool) -> DPResult:
 
     dirs = (torch.empty((B, LS, W), dtype=torch.uint8, device=sw.device)
             if with_dirs else None)
+    # [LS, B, W] view: its entry r is row r + 1 of every pair's plane
+    dirs_rows = dirs.transpose(0, 1) if with_dirs else None
 
     def upd(best, bi, bk, cand_val, cand_k, active, i):
         better = active & (cand_val > best)
@@ -337,10 +352,14 @@ def _solve(sw: _Sweep, with_dirs: bool) -> DPResult:
                 torch.where(better, i, bi),
                 torch.where(better, cand_k.to(torch.int32), bk))
 
-    for i in range(1, LS + 1):
+    def step(a, i_now, state):
+        """Row ``i_now``: an int, or inside a CUDA graph a one-element
+        int64 device tensor (``a``, its value, is unused)."""
+        H, F, best, bi, bk, corner = state
+        i = i_now if isinstance(i_now, int) else i_now.to(torch.int32)
         H, F, Hm, d = sw.row(H, F, i, with_dirs)
         if with_dirs:
-            dirs[:, i - 1] = d
+            put(dirs_rows, i_now - 1, d)
         row_valid = i <= sl
         if flags.local_end:
             best, bi, bk = upd(best, bi, bk, Hm.max(dim=1).values,
@@ -356,6 +375,10 @@ def _solve(sw: _Sweep, with_dirs: bool) -> DPResult:
                 torch.argmax(Hm, dim=1), is_last, i)
         # corner (i == LS, j == LT) for global / end-anchored modes
         corner = torch.where(i == sl, _at(H, kcol, W), corner)
+        return H, F, best, bi, bk, corner
+
+    H, F, best, bi, bk, corner = run_steps(
+        step, (H, F, best, bi, bk, corner), range(1, LS + 1))
 
     if flags.local_end or flags.free_end_edges:
         score, ei, ek = best, bi, bk

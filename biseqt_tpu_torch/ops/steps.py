@@ -15,6 +15,8 @@ plain loop.
 
 from __future__ import annotations
 
+from collections import deque
+
 import torch
 
 __all__ = ["run_steps", "take", "put", "add_at", "GRAPH_CHUNK"]
@@ -22,6 +24,9 @@ __all__ = ["run_steps", "take", "put", "add_at", "GRAPH_CHUNK"]
 # steps captured into one CUDA graph (a multiple of 4: a step may read
 # its index's residue mod 4 as a Python int)
 GRAPH_CHUNK = 128
+# (event, graph): graphs a call no longer needs, kept with their memory
+# until the replays queued before the event have run
+_RETIRED = deque()
 
 
 def take(x: torch.Tensor, i):
@@ -79,16 +84,22 @@ def run_steps(step, state, steps: range, graphs=None):
             state = step(a, a, state)
         rest = steps[chunk:]
         static = tuple(x.clone() for x in state)
-        counter = torch.tensor([rest[0]], dtype=torch.int64,
-                               device=state[0].device)
+        counter = torch.full((1,), rest[0], dtype=torch.int64,
+                             device=state[0].device)
+        # captured on a side stream without torch.cuda.graph's device
+        # synchronise: the host never waits for the card here
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            st = static
-            for c in range(chunk):
-                st = step(rest[c], counter + c * steps.step, st)
-            for x, y in zip(static, st):
-                x.copy_(y)
-            counter.add_(chunk * steps.step)
+        with torch.cuda.stream(torch.cuda.Stream(state[0].device)):
+            graph.capture_begin()
+            try:
+                st = static
+                for c in range(chunk):
+                    st = step(rest[c], counter + c * steps.step, st)
+                for x, y in zip(static, st):
+                    x.copy_(y)
+                counter.add_(chunk * steps.step)
+            finally:
+                graph.capture_end()
         if graphs is not None:
             graphs[(rest[0] % 4, steps.step)] = (graph, static, counter)
     else:
@@ -101,9 +112,7 @@ def run_steps(step, state, steps: range, graphs=None):
     for _ in range(n_graphed // chunk):
         graph.replay()
     if graphs is None:
-        # the graph's memory goes back to the allocator with it
-        torch.cuda.current_stream().synchronize()
-        del graph
+        _retire(graph)
         state = static
     else:
         # the kept graph's inputs are overwritten by the next call
@@ -111,3 +120,15 @@ def run_steps(step, state, steps: range, graphs=None):
     for a in rest[n_graphed:]:
         state = step(a, a, state)
     return state
+
+
+def _retire(graph):
+    """Release ``graph`` (and the memory of its intermediates) once the
+    replays queued so far have run, without waiting for them: it is kept
+    with an event, and dropped by a later call that finds the event
+    completed."""
+    while _RETIRED and _RETIRED[0][0].query():
+        _RETIRED.popleft()
+    event = torch.cuda.Event()
+    event.record()
+    _RETIRED.append((event, graph))

@@ -5,12 +5,23 @@ reference's ``pwlib`` solve + traceback contract as this framework
 serves it) and of :func:`biseqt_tpu.pipeline.discover_and_extend`,
 Word-Blot discovery (:mod:`.blot`) and extension in one call.  Every
 candidate's (d, a) rectangle is cut out of both sequences, segments
-are grouped by bucketed cutout shape, and each
-group is extended in launches of the antidiagonal DP kernel
-(:mod:`.ops.dp_ad`).  With transcripts, each launch writes the
-direction plane, the walk kernel (:mod:`.ops.walk`) turns it into a
-2-bit op trace on the device, and the C++ host tier compacts the
-trace into MSID transcripts (:func:`.native.compact_sweep_ops_t`).
+are grouped by bucketed cutout shape, and each group is extended in
+launches.  ``use_pallas``, the JAX package's engine choice, picks one
+of three routes:
+
+* ``None`` (the default) leaves it to ``device``: the antidiagonal DP
+  kernel (:mod:`.ops.dp_ad`) on a card, its plain twin on the CPU.
+  With transcripts each launch writes the direction plane, the walk
+  kernel (:mod:`.ops.walk`, or its twin) turns it into a 2-bit op
+  trace on the device, and the C++ host tier compacts the trace into
+  MSID transcripts (:func:`.native.compact_sweep_ops_t`).  This is the
+  JAX package's route on its accelerator.
+* ``True`` asks for the same kernels, and so for a CUDA ``device``.
+* ``False`` is the JAX package's row route, its default on a CPU: the
+  row-wavefront engine (:func:`.ops.banded_dp.banded_dp`) over the
+  whole band on ``device``, its ``[B, LS, W]`` direction bytes copied
+  to the host and walked by the C++ tier
+  (:func:`.native.traceback_batch`).  No kernel is launched.
 
 Launch geometry (window split, cuts, shape buckets, batch padding) is
 the JAX package's, so both packages solve the same problems and their
@@ -32,7 +43,7 @@ import torch
 
 from . import native
 from .blot import WordBlot
-from .ops.banded_dp import ModeFlags, resolve_device
+from .ops.banded_dp import ModeFlags, banded_dp, resolve_device
 from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase
@@ -114,18 +125,19 @@ def _split_windows(segments, pad_radius, pad_a, dirs_budget):
 
 def extension_plan(segments, len_s, len_t, with_transcripts: bool, *,
                    pad_radius: int = PAD_RADIUS, pad_a: int = PAD_A,
-                   dirs_budget: int = DIRS_BUDGET):
+                   dirs_budget: int = DIRS_BUDGET, row: bool = False):
     """What :func:`extend_segments` launches for ``segments``: ``(rows,
     src_idx, cut, launches)``, the rows after the window split
     (transcripts only), the segment each came from, each row's cut
-    (:func:`cut_segment`) and the launches (:func:`plan_launches`)."""
+    (:func:`cut_segment`) and the launches (:func:`plan_launches`;
+    ``row``: on the row route, ``use_pallas=False``)."""
     if with_transcripts:
         rows, src_idx = _split_windows(segments, pad_radius, pad_a,
                                        int(dirs_budget))
     else:
         rows, src_idx = list(segments), list(range(len(segments)))
     cut = [cut_segment(row, len_s, len_t, pad_radius, pad_a) for row in rows]
-    return rows, src_idx, cut, plan_launches(cut, with_transcripts)
+    return rows, src_idx, cut, plan_launches(cut, with_transcripts, row=row)
 
 
 def cut_segment(seg, len_s, len_t, pad_radius=PAD_RADIUS, pad_a=PAD_A):
@@ -158,11 +170,12 @@ def _bucket_floor(n, mini):
     return max(mini, n // step * step)
 
 
-def plan_launches(cut, with_transcripts: bool):
+def plan_launches(cut, with_transcripts: bool, row: bool = False):
     """The launches of a list of cuts: ``(idxs, LS, LT, W)`` per launch.
     Cuts are grouped by bucketed shape, and each group is cut into
-    launches whose padded batch fits the per-launch memory budget.
-    Which pairs share a launch changes no result."""
+    launches whose padded batch fits the per-launch memory budget (on
+    the row route, ``row``, its ``[LS, W]`` byte plane a pair).  Which
+    pairs share a launch changes no result."""
     groups: Dict[tuple, List[int]] = {}
     for idx, c in enumerate(cut):
         key = (_bucket(c[1] - c[0]), _bucket(c[3] - c[2]),
@@ -172,9 +185,10 @@ def plan_launches(cut, with_transcripts: bool):
     for (LS, LT, W), idxs in sorted(groups.items()):
         per_pair = LS + LT + 2 * W
         if with_transcripts:
-            # the dirs plane (~(LS + LT) * W / 4 bytes per pair)
-            # dominates the launch's memory
-            per_pair += (LS + LT + 2 * W) * W // 4
+            # the dirs plane dominates the launch's memory: K1's nibble
+            # plane (~(LS + LT) * W / 4 bytes per pair) or the row
+            # engine's byte plane (LS * W, about twice as many)
+            per_pair += LS * W if row else (LS + LT + 2 * W) * W // 4
         # a launch is padded to a bucketed batch (launch_inputs): the
         # largest bucket within the budget
         cap = _bucket_floor(LAUNCH_BYTES // max(per_pair, 1),
@@ -185,11 +199,14 @@ def plan_launches(cut, with_transcripts: bool):
 
 
 def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
-                  with_transcripts: bool):
+                  with_transcripts: bool, row: bool = False):
     """The numpy inputs of one launch: the batch is padded with inert
     length-1 pairs to a bucketed size, each pair's band is the top
     ``min(width, W - 1)`` diagonals of ``[dmin, dmin + W)``, and
-    ``dminq`` holds the parity-adjusted band starts the walk reads."""
+    ``dminq`` holds the parity-adjusted band starts the walk reads.  On
+    the row route (``row``) the band is the top ``min(width, W)``
+    diagonals, as the JAX package's row route has it, and there is no
+    ``dminq``."""
     n_pad = _bucket(len(idxs), mini=_batch_mini(with_transcripts))
     s_codes = np.zeros((n_pad, LS), np.int8)
     t_codes = np.zeros((n_pad, LT), np.int8)
@@ -206,36 +223,44 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
         # pad on the dmin side to the shared W (the lane mask trims it)
         dmin[b] = dh - W + 1
         w_eff[b] = min(dh - dl + 1, W)
+    x = dict(s_codes=s_codes, t_codes=t_codes, s_lens=s_lens,
+             t_lens=t_lens, dmin=dmin, w_eff=w_eff)
+    if row:
+        return x
     # one lane of slack absorbs the parity adjustment of dmin
-    w_eff = np.minimum(w_eff, W - 1)
-    dminq = parity_adjusted_dmin(dmin, np.arange(n_pad, dtype=np.int32) % 2)
-    return dict(s_codes=s_codes, t_codes=t_codes, s_lens=s_lens,
-                t_lens=t_lens, dmin=dmin, w_eff=w_eff, dminq=dminq)
+    x["w_eff"] = np.minimum(w_eff, W - 1)
+    x["dminq"] = parity_adjusted_dmin(dmin,
+                                      np.arange(n_pad, dtype=np.int32) % 2)
+    return x
 
 
 def _engine_device(use_pallas, device):
-    """``device`` resolved, held to ``use_pallas``, the JAX package's
-    engine choice: ``True`` asks for the kernels (a CUDA ``device``),
-    ``False`` for the plain twins (the CPU), ``None`` leaves it to
-    ``device``; a value that contradicts ``device`` raises
-    ``ValueError``."""
+    """``(device, row)``: ``device`` resolved, and whether
+    ``use_pallas``, the JAX package's engine choice, names the row route.
+    ``True`` asks for the kernels and raises ``ValueError`` unless
+    ``device`` is a card; ``None`` leaves the choice to ``device`` (the
+    kernels on a card, their plain twins on the CPU); ``False`` names
+    the row route, which runs on any ``device``.  Work never moves to
+    another device than ``device``."""
     device = resolve_device(device)
-    if use_pallas is not None and bool(use_pallas) != (
-            device.type == "cuda"):
+    if use_pallas and device.type != "cuda":
         raise ValueError(
             "use_pallas=%r contradicts device=%s: the kernels run on a"
-            " CUDA device and their plain twins on the CPU"
-            % (use_pallas, device))
-    return device
+            " CUDA device" % (use_pallas, device))
+    return device, use_pallas is not None and not use_pallas
 
 
-def launch_bytes(n, LS, LT, W, with_transcripts: bool, r_chunk: int = 128):
+def launch_bytes(n, LS, LT, W, with_transcripts: bool, r_chunk: int = 128,
+                 row: bool = False):
     """The bytes a launch of ``n`` pairs counts against
     :data:`PIPELINE_BYTES`: its padded codes and, with transcripts, its
-    dirs plane ``[Apad // 2, B2, W]``."""
+    dirs plane, K1's ``[Apad // 2, B2, W]`` or on the row route
+    (``row``) the row engine's ``[n_pad, LS, W]``."""
     n_pad = _bucket(n, mini=_batch_mini(with_transcripts))
     est = n_pad * (LS + LT)
-    if with_transcripts:
+    if with_transcripts and row:
+        est += n_pad * LS * W
+    elif with_transcripts:
         apad = -(-(LS + LT + 2) // r_chunk) * r_chunk
         est += apad // 2 * ((n_pad + 1) // 2) * W
     return est
@@ -252,25 +277,31 @@ def _to_host(x, device):
 
 
 class _Launch(NamedTuple):
-    """A dispatched launch: its rows, its inputs, the host copies of its
-    results (ready once ``event`` has completed; ``None`` on the CPU)."""
+    """A dispatched launch: its rows, its inputs, its band width, its
+    route (see :func:`_dispatch`), the host copies of its results (ready
+    once ``event`` has completed; ``None`` on the CPU)."""
     idxs: list
     x: dict
+    W: int
+    route: str
     host: list
     event: Optional[torch.cuda.Event]
 
 
-def _dispatch(idxs, x, W, dp_kw, with_transcripts, device_walk, device):
-    """Queue one launch on the device: K1, then with transcripts either
-    the walk kernel and its replay guard (``device_walk``) or the plane
-    itself, and the copies of what :func:`_finish` reads to pinned host
-    buffers, then an event.  Nothing here waits for the device."""
+def _dispatch(idxs, x, W, dp_kw, with_transcripts, route, device):
+    """Queue one launch on the device, then the copies of what
+    :func:`_finish` reads to pinned host buffers, then an event; nothing
+    here waits for the device.  ``route``: ``"walk"``, K1 and with
+    transcripts the walk kernel and its replay guard; ``"plane"``, K1
+    and its plane; ``"row"``, the row engine and its first ``n`` pairs'
+    byte plane."""
     n = len(idxs)
-    res = banded_dp_ad(x["s_codes"], x["t_codes"], x["s_lens"],
-                       x["t_lens"], x["dmin"], W=W, w_eff=x["w_eff"],
-                       with_dirs=with_transcripts, device=device, **dp_kw)
+    engine = banded_dp if route == "row" else banded_dp_ad
+    res = engine(x["s_codes"], x["t_codes"], x["s_lens"], x["t_lens"],
+                 x["dmin"], W=W, w_eff=x["w_eff"],
+                 with_dirs=with_transcripts, device=device, **dp_kw)
     host = [res.score[:n]]
-    if with_transcripts and device_walk:
+    if with_transcripts and route == "walk":
         # padding pairs are skipped by the walk (-1 end cells)
         real = torch.arange(len(x["dmin"]), device=device) < n
         ei = torch.where(real, res.end_i, -1)
@@ -283,19 +314,20 @@ def _dispatch(idxs, x, W, dp_kw, with_transcripts, device_walk, device):
         bad = ((ei - fi) != di) | ((ej - fj) != dj)
         host += [torch.stack([fi, fj, di, dj, bad.to(torch.int32)]), trace]
     elif with_transcripts:
-        host += [torch.stack([res.end_i[:n], res.end_j[:n]]), res.dirs]
+        plane = res.dirs[:n] if route == "row" else res.dirs
+        host += [torch.stack([res.end_i[:n], res.end_j[:n]]), plane]
     host = [_to_host(h, device) for h in host]
     event = None
     if device.type == "cuda":
         event = torch.cuda.Event()
         event.record()
-    return _Launch(idxs, x, host, event)
+    return _Launch(idxs, x, W, route, host, event)
 
 
-def _finish(launch, flags, with_transcripts, device_walk):
+def _finish(launch, flags, with_transcripts):
     """Wait for a dispatched launch and return its scores and, with
-    transcripts, its ``(ops, start_i, start_j)`` compacted by the C++
-    tier; a walk that does not lead from its end cell raises."""
+    transcripts, its ``(ops, start_i, start_j)`` compacted or walked by
+    the C++ tier; a walk that does not lead from its end cell raises."""
     if launch.event is not None:
         launch.event.synchronize()
     x, n = launch.x, len(launch.idxs)
@@ -307,7 +339,12 @@ def _finish(launch, flags, with_transcripts, device_walk):
     codes = (x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
              x["t_lens"][:n])
     with Phase("pipeline.compact"):
-        if not device_walk:
+        if launch.route == "row":
+            # lane k of the row plane is the diagonal dmin + W - 1 - k
+            return score, native.traceback_batch(
+                walked, x["dmin"][:n] + (launch.W - 1), *codes, *cursors,
+                flags)
+        if launch.route == "plane":
             return score, native.traceback_batch_ad(
                 walked, x["dminq"][:n], *codes, *cursors, flags)
         fi, fj, di, dj, bad = cursors
@@ -342,15 +379,22 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     output may hold more rows than ``segments``: join on
     ``source_index``.
 
-    ``device="cuda"`` (the default) runs the hand-written kernels and
-    raises without a card; ``device="cpu"`` runs their plain PyTorch
-    twins.  ``use_pallas`` names the same choice, as in
-    :func:`discover_and_extend`.  With ``device_walk=False`` the
-    direction plane is copied to the host and walked there by the C++
-    tier (:func:`.native.traceback_batch_ad`), the JAX package's host
-    route; its transcripts and start cells equal the device walk's.
+    ``device="cuda"`` (the default) runs on the card and raises without
+    one; ``device="cpu"`` runs on the host.  ``use_pallas`` picks the
+    route, as in the JAX package: ``None`` (the default) the
+    hand-written kernels on a card and their plain PyTorch twins on the
+    CPU; ``True`` the kernels, and raises ``ValueError`` unless
+    ``device`` is a card; ``False`` the JAX package's row route on
+    ``device`` (the row-wavefront engine over the whole band, its
+    direction bytes walked on the host by
+    :func:`.native.traceback_batch`), which launches no kernel.  With
+    ``device_walk=False`` K1's direction plane is copied to the host and
+    walked there by the C++ tier (:func:`.native.traceback_batch_ad`),
+    the JAX package's host route; its transcripts and start cells equal
+    the device walk's.  The row route always walks on the host, so
+    ``device_walk`` has no effect there, as in the JAX package.
     """
-    device = _engine_device(use_pallas, device)
+    device, row = _engine_device(use_pallas, device)
     if not segments:
         return []
     A = len(S.alphabet)
@@ -372,7 +416,8 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                 "(with_transcripts=False)")
     segments, src_idx, cut, launches = extension_plan(
         segments, len(S), len(T), with_transcripts, pad_radius=pad_radius,
-        pad_a=pad_a, dirs_budget=_dirs_budget)
+        pad_a=pad_a, dirs_budget=_dirs_budget, row=row)
+    route = "row" if row else "walk" if device_walk else "plane"
     B = len(cut)
     # local mode: the alignment starts and ends wherever the homology does
     flags = ModeFlags(local_start=True, local_end=True)
@@ -381,7 +426,9 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     si_all = np.zeros((B,), np.int32)
     sj_all = np.zeros((B,), np.int32)
     dp_kw = dict(subst=subst, go=float(go_score), ge=float(ge_score),
-                 flags=flags, r_chunk=int(_r_chunk))
+                 flags=flags)
+    if not row:
+        dp_kw["r_chunk"] = int(_r_chunk)
 
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
@@ -393,8 +440,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
         launch, est = pending.popleft()
         inflight -= est
         with Phase("pipeline.finish"):
-            score, walked = _finish(launch, flags, with_transcripts,
-                                    device_walk)
+            score, walked = _finish(launch, flags, with_transcripts)
         idxs = launch.idxs
         scores[idxs] = score
         if walked is not None:
@@ -406,17 +452,17 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     with Phase("pipeline.extend", cells=total_cells):
         for idxs, LS, LT, W in launches:
             est = launch_bytes(len(idxs), LS, LT, W, with_transcripts,
-                               int(_r_chunk))
+                               int(_r_chunk), row=row)
             # finish the oldest launches first while this one would put
             # the bytes in flight past the budget (0: one at a time)
             while pending and inflight + est > PIPELINE_BYTES:
                 finish_oldest()
             x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
-                              with_transcripts)
+                              with_transcripts, row=row)
             with Phase("pipeline.launch"):
                 pending.append((_dispatch(idxs, x, W, dp_kw,
-                                          with_transcripts, device_walk,
-                                          device), est))
+                                          with_transcripts, route, device),
+                                est))
             inflight += est
         while pending:
             finish_oldest()
@@ -449,17 +495,18 @@ def discover_and_extend(S, T, *, wordlen: int = 8, K_min: int = 100,
     join on ``source_index``.
 
     ``device="cuda"`` (the default) runs the seed join and statistics on
-    the card and extends with the hand-written kernels; ``"cpu"`` runs
-    them and the kernels' plain twins on the host.  ``use_pallas``, the
-    JAX package's engine choice, names the same choice here: ``True``
-    asks for the kernels (a CUDA ``device``), ``False`` for the plain
-    twins (the CPU), ``None`` leaves it to ``device``; a value that
-    contradicts ``device`` raises ``ValueError``.
+    the card, ``"cpu"`` on the host, and the extension on the same
+    device.  ``use_pallas``, the JAX package's engine choice, picks the
+    extension's route as in :func:`extend_segments`: ``None`` the
+    hand-written kernels on a card and their plain twins on the CPU,
+    ``True`` the kernels (a CUDA ``device``, else ``ValueError``),
+    ``False`` the row route on ``device``.
     """
-    device = _engine_device(use_pallas, device)
+    device, _ = _engine_device(use_pallas, device)
     wb = WordBlot(S, T, wordlen=wordlen, g_max=g_max, device=device)
     segments = list(wb.similar_segments(K_min=K_min, p_min=p_min))
     extended = extend_segments(
         S, T, segments, subst=subst, go_score=go_score, ge_score=ge_score,
-        with_transcripts=with_transcripts, device=device)
+        use_pallas=use_pallas, with_transcripts=with_transcripts,
+        device=device)
     return sorted(extended, key=lambda s: -s["score"])

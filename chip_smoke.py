@@ -170,7 +170,20 @@ Phases, each of which exits non-zero on failure:
    CPU run of the same config (every untimed field; p-hat's mean error
    within rtol 1e-5, atol 1e-6; the genome's transcript ops within rtol
    1e-4 and match fraction within 1e-3, ``GENOME_TX_TOL``), and prints
-   one line each with the card.
+   one line each with the card;
+16. runs the band-sharded engines and the checkpointed sweep on a
+   world-of-one mesh (``sharded_phase``);
+17. runs the row route, ``use_pallas=False`` (the row engine over the
+   whole band on the card, its rows replayed from CUDA graphs, its plane
+   walked on the host by ``native.traceback_batch``) with the DP and
+   walk kernels' launch counters unmoved: phase 2's batch (every
+   transcript rescored and covering 90% of its block, every score equal
+   to phase 2's, the transcripts that differ counted; the narrow
+   segments equal to the CPU's row route byte for byte), the
+   band-filling segment (600.0, against 9.0 on the kernels' route) and
+   ``discover_and_extend`` on a rearranged 100 kbp pair, equal to the
+   JAX package's row route on the CPU exactly (``ROW_ROUTE_JAX_CPU``),
+   beside the kernels' route on the same input.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
@@ -323,7 +336,9 @@ GENOME_JAX_CPU = dict(size=2000000, n_blocks=8, n_segments=7,
 # (the antidiagonal DP on at most W - 1 diagonals, walked on the device),
 # and the two routes may pick different alignments among equal-scoring
 # ones: 5 ops of 2,018,609 on this config (tests/test_torch_experiments.py
-# holds the port to the JAX script exactly at 20 kbp).
+# holds the port to the JAX script exactly at 20 kbp).  genome_row_route()
+# runs this config on both routes on the card: the row route gives the
+# JAX package's CPU run exactly, and one of the 7 transcripts differs.
 GENOME_TX_TOL = dict(tx_total_ops=1e-4, tx_match_frac=1e-3)  # rel., abs.
 # phase 16: the band-sharded engines on a world-of-one mesh.  (a) phase
 # 6's 100 kbp pair, its band (-250, 250) laid out as the Aligner lays it
@@ -339,6 +354,23 @@ SHARDED = dict(halo=64, ckpt_chunks=8, wide_len=20_000, wide_band=4095,
 # compares; the source tests, the local stop and the tracker's compare
 # run only with directions.
 DP_AD_SCORE_OPS_PER_CELL = 14
+# phase 17: the row route, extend_segments(use_pallas=False).  (b) a
+# random 600 bp sequence against itself, its segment's padded band the
+# 128 diagonals 0-127 (W 128), the identity on the lowest: the row route
+# keeps that diagonal, K1's route (w_eff at most W - 1) does not
+BAND_FILL = dict(seed=5, length=600, segment=((16, 111), (200, 1000)),
+                 row_score=600.0, k1_score=9.0)
+# (c) discover_and_extend(use_pallas=False) on a rearranged pair
+# (rearranged_pair at GENOME's rates, 100 kbp in 4 blocks), held to the
+# JAX package's discover_and_extend(use_pallas=False, with_transcripts=
+# True) on the CPU on the same codes: the rows' count, scores (in the
+# output's order), transcript ops, and the SHA-1 of every row's
+# "<transcript> <origin_start> <mutate_start>\n" in that order
+ROW_ROUTE = dict(size=100_000, blocks=4, seed=20261022, wordlen=12,
+                 g_max=0.1, p_min=0.6)
+ROW_ROUTE_JAX_CPU = dict(
+    n_segments=4, scores=[19040.0, 19031.0, 18834.0, 18715.0],
+    tx_total_ops=100861, sha1="857048dce96f95bf35f3bcfd884f4d1c4b7f2e57")
 
 
 def fail(msg):
@@ -1961,6 +1993,320 @@ def sharded_alone():
     print(card)
 
 
+def row_digest(rows):
+    """The SHA-1 of every row's ``"<transcript> <origin_start>
+    <mutate_start>\\n"``, in order (``ROW_ROUTE_JAX_CPU``'s)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for row in rows:
+        h.update(("%s %d %d\n" % (row["transcript"], row["origin_start"],
+                                  row["mutate_start"])).encode())
+    return h.hexdigest()
+
+
+def row_route_phase(dev, card, S, T, segments, out, narrow, subst):
+    """Phase 17: the row route, ``use_pallas=False`` (the row engine over
+    the whole band on the card, its direction bytes walked on the host by
+    ``native.traceback_batch``), with K1's and the walk's launch counters
+    unmoved.  (a) Phase 2's batch: every transcript rescores to its score
+    and covers 90% of its block, every score equals phase 2's (the same
+    band: w_eff 133 < W - 1), the transcripts that differ are counted;
+    the NARROW segments give the CPU's row route byte for byte.  (b) The
+    band-filling case: 600.0 on the row route, 9.0 on K1's.  (c)
+    ``discover_and_extend`` on a rearranged pair equals the JAX
+    package's row route on the CPU exactly (``ROW_ROUTE_JAX_CPU``), and
+    K1's route is compared with it."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import pipeline, profiling
+    from biseqt_tpu_torch.ops import dp_ad, walk
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    t_phase = time.perf_counter()
+    A4 = Alphabet("ACGT")
+    kw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True,
+              use_pallas=False)
+    spans = ("pipeline.launch", "pipeline.finish", "pipeline.compact")
+    record = {"card": card}
+
+    def counted(label, fn):
+        """``fn()`` on the host clock (ending in a synchronise), with the
+        allocator's peak above what was held and the pipeline's spans; K1
+        and the walk must not be launched."""
+        launches = (dp_ad.LAUNCHES, walk.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        before = profiling.counters()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if (dp_ad.LAUNCHES, walk.LAUNCHES) != launches:
+            fail("%s: the row route launched K1 or the walk (%s -> %s)"
+                 % (label, launches, (dp_ad.LAUNCHES, walk.LAUNCHES)))
+        return result, dict(
+            seconds=wall,
+            peak_bytes=torch.cuda.max_memory_allocated(dev) - held,
+            spans=phase_seconds(before, spans))
+
+    # -- (a) phase 2's batch ------------------------------------------------
+    pipeline.extend_segments(S, T, segments[:2], device=dev, **kw)  # warm-up
+    _, _, cut, launches = pipeline.extension_plan(segments, len(S), len(T),
+                                                  True, row=True)
+    rows_swept = sum(LS for _, LS, _, _ in launches)
+    plane_bytes = sum(len(idxs) * LS * W for idxs, LS, _, W in launches)
+    got, a = counted("(a)", lambda: pipeline.extend_segments(
+        S, T, segments, device=dev, **kw))
+    s_arr, t_arr = S.to_array(), T.to_array()
+    short = 0
+    for seg in got:
+        tx = seg["transcript"]
+        score, letters_ok = rescore(np, tx, s_arr, t_arr,
+                                    seg["origin_start"], seg["mutate_start"],
+                                    subst)
+        if score != seg["score"] or not letters_ok:
+            fail("row route: transcript of segment %d rescores to %r, score"
+                 " %r (letters ok: %s)" % (seg["source_index"], score,
+                                          seg["score"], letters_ok))
+        if tx.count("M") + tx.count("S") + tx.count("D") < 0.9 * seg[
+                "block"][2]:
+            short += 1
+    if short:
+        fail("row route: %d transcripts cover less than 90%% of their block"
+             % short)
+    if [seg["source_index"] for seg in got] != [
+            seg["source_index"] for seg in out]:
+        fail("row route: rows differ from phase 2's")
+    score_diff = sum(g["score"] != k["score"] for g, k in zip(got, out))
+    tx_diff = sum((g["transcript"], g["origin_start"], g["mutate_start"])
+                  != (k["transcript"], k["origin_start"], k["mutate_start"])
+                  for g, k in zip(got, out))
+    if score_diff:
+        fail("row route: %d of %d scores differ from phase 2's K1 route on"
+             " the same band" % (score_diff, len(got)))
+    record["batch"] = dict(
+        launches=len(launches), segments=len(got), rows_swept=rows_swept,
+        us_a_row=a["seconds"] / rows_swept * 1e6, plane_bytes=plane_bytes,
+        scores_differ=score_diff, transcripts_differ=tx_diff, **a)
+    print("row route (a), %s: %d segments in %d launch(es) (LS %s, W %s),"
+          " %.3f s end to end, %d DP rows swept, %.1f us a row, allocator"
+          " peak %d bytes, %d plane bytes copied to the host; host seconds"
+          " %s; K1 and the walk not launched; every transcript rescores"
+          " exactly and covers >= 90%% of its block; scores == phase 2's K1"
+          " route (%d differ), transcripts differ on %d of %d"
+          % (card, len(got), len(launches),
+             sorted({LS for _, LS, _, _ in launches}),
+             sorted({W for _, _, _, W in launches}), a["seconds"],
+             rows_swept, record["batch"]["us_a_row"], a["peak_bytes"],
+             plane_bytes, json.dumps(a["spans"]), score_diff, tx_diff,
+             len(got)))
+    narrow_card, n = counted("(a) narrow", lambda: pipeline.extend_segments(
+        S, T, segments[:NARROW], device=dev, **kw))
+    t0 = time.perf_counter()
+    narrow_cpu = pipeline.extend_segments(S, T, segments[:NARROW],
+                                          device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    if narrow_card != narrow_cpu:
+        fail("row route: the NARROW segments on the card differ from the"
+             " CPU's row route")
+    record["narrow"] = dict(card_s=n["seconds"], cpu_s=cpu_s)
+    print("row route (a), the %d NARROW segments: card == CPU byte for byte"
+          " (card %.3f s, CPU %.3f s); %d transcripts differ from phase 2's"
+          % (NARROW, n["seconds"], cpu_s, sum(
+              g != k for g, k in zip(narrow_card, narrow))))
+
+    # -- (b) the band-filling case -------------------------------------------
+    bf = BAND_FILL
+    Sb = Sequence(A4, np.random.default_rng(bf["seed"]).integers(
+        0, 4, bf["length"]).astype(np.int8))
+    seg = [{"segment": bf["segment"]}]
+    (bw,) = {W for _, _, _, W in pipeline.plan_launches(
+        [pipeline.cut_segment(seg[0], len(Sb), len(Sb))], True, row=True)}
+    row_b, _ = counted("(b)", lambda: pipeline.extend_segments(
+        Sb, Sb, seg, device=dev, **kw))
+    k1_b = pipeline.extend_segments(Sb, Sb, seg, subst=subst, go_score=GO,
+                                    ge_score=GE, with_transcripts=True,
+                                    device=dev)
+    if (row_b[0]["score"], k1_b[0]["score"]) != (bf["row_score"],
+                                                 bf["k1_score"]) or \
+            row_b[0]["transcript"] != "M" * bf["length"]:
+        fail("band-filling case: row route %r, K1 route %r; expected %r and"
+             " %r" % (row_b[0]["score"], k1_b[0]["score"], bf["row_score"],
+                      bf["k1_score"]))
+    print("row route (b), the band-filling case (W %d, the identity on the"
+          " band's lowest diagonal): row route %r (transcript M x %d), K1"
+          " route %r" % (bw, row_b[0]["score"], bf["length"],
+                         k1_b[0]["score"]))
+    record["band_fill"] = dict(W=bw, row=row_b[0]["score"],
+                               k1=k1_b[0]["score"])
+
+    # -- (c) discover_and_extend on a rearranged pair -------------------------
+    rr = ROW_ROUTE
+    a_codes, b_codes, _ = rearranged_pair(
+        np, np.random.default_rng(rr["seed"]), rr["size"], rr["blocks"],
+        GENOME["sub"], GENOME["gap"])
+    Sg, Tg = Sequence(A4, a_codes), Sequence(A4, b_codes)
+    dkw = dict(wordlen=rr["wordlen"], g_max=rr["g_max"], p_min=rr["p_min"],
+               K_min=rr["size"] // rr["blocks"] // 8, subst=subst,
+               go_score=GO, ge_score=GE, with_transcripts=True, device=dev)
+    found, c = counted("(c)", lambda: pipeline.discover_and_extend(
+        Sg, Tg, use_pallas=False, **dkw))
+    want = ROW_ROUTE_JAX_CPU
+    gotc = dict(n_segments=len(found), scores=[r["score"] for r in found],
+                tx_total_ops=sum(len(r["transcript"]) for r in found),
+                sha1=row_digest(found))
+    if gotc != want:
+        fail("row route (c): %s, the JAX package's CPU run %s"
+             % (gotc, want))
+    segs = [{"segment": r["segment"]} for r in found]
+    c_launches = pipeline.extension_plan(segs, len(Sg), len(Tg), True,
+                                         row=True)[3]
+    c_rows = sum(LS for _, LS, _, _ in c_launches)
+    t0 = time.perf_counter()
+    k1 = pipeline.discover_and_extend(Sg, Tg, use_pallas=None, **dkw)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t0
+    by_source = {r["source_index"]: r for r in k1}
+    if sorted(by_source) != sorted(r["source_index"] for r in found):
+        fail("row route (c): K1's route extended other segments")
+    key = lambda r: (r["transcript"], r["origin_start"], r["mutate_start"])
+    differ = [r for r in found if key(r) != key(by_source[r["source_index"]])]
+    k1_ops = sum(len(r["transcript"]) for r in k1)
+    k1_m = sum(r["transcript"].count("M") for r in k1)
+    row_m = sum(r["transcript"].count("M") for r in found)
+    record["rearranged"] = dict(
+        rows_swept=c_rows, launches=len(c_launches),
+        us_a_row=c["seconds"] / c_rows * 1e6, k1_seconds=k1_s,
+        transcripts_differ=len(differ),
+        scores_differ=sum(r["score"] != by_source[r["source_index"]]["score"]
+                          for r in found),
+        tx_total_ops=gotc["tx_total_ops"], k1_tx_total_ops=k1_ops,
+        matches=row_m, k1_matches=k1_m, **c)
+    print("row route (c), %s: discover_and_extend(use_pallas=False) on %d +"
+          " %d bp (%d blocks) == the JAX package's CPU row route exactly"
+          " (%d rows, scores %s, %d transcript ops, SHA-1 %s); %.3f s, %d"
+          " launch(es), %d DP rows swept, %.1f us a row, peak %d bytes; K1's"
+          " route (use_pallas=None, %.3f s): %d of %d transcripts differ,"
+          " scores differ on %d, transcript ops %d against %d, M ops %d"
+          " against %d" % (
+              card, len(Sg), len(Tg), rr["blocks"], len(found),
+              gotc["scores"], gotc["tx_total_ops"], gotc["sha1"],
+              c["seconds"], len(c_launches), c_rows,
+              record["rearranged"]["us_a_row"], c["peak_bytes"], k1_s,
+              len(differ), len(found), record["rearranged"]["scores_differ"],
+              k1_ops, gotc["tx_total_ops"], k1_m, row_m))
+    phase_s = time.perf_counter() - t_phase
+    record["phase_s"] = phase_s
+    print("row route: " + json.dumps(record))
+    print("phase 17: %.1f s" % phase_s)
+    return record
+
+
+def row_route_alone():
+    """Phase 17 alone, after phase 2's main path (the smoke's batch
+    planted and extended on K1's route, counted as phase 2 counts it):
+
+        python3 -c 'import chip_smoke; chip_smoke.row_route_alone()'
+    """
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import native, pipeline
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    if not native.available():
+        fail("the C++ host tier (pwnative.cpp) did not build")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    rng = np.random.default_rng(20261016)
+    S, T, segments = plant(np, rng, Alphabet("ACGT"), Sequence)
+    subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+    kw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True,
+              device=dev)
+    out = pipeline.extend_segments(S, T, segments, **kw)
+    narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
+    row_route_phase(dev, card, S, T, segments, out, narrow, subst)
+    print(card)
+
+
+def genome_row_route():
+    """The genome experiment's config (``GENOME_RUN``: 2 x 2 Mbp, 8
+    blocks, word length 12, with transcripts) extended on the card on the
+    row route (``use_pallas=False``) and on K1's (``None``), each row of
+    ``genome_homology.run_once`` held to the JAX package's CPU run
+    (``GENOME_JAX_CPU``, whose extension is the JAX row route): the row
+    route must equal it exactly, and the count of transcripts the two
+    routes give differently says whether the route accounts for
+    ``GENOME_TX_TOL``.  Not a phase of the smoke (~5 min on the card, the
+    row route's 1.57 M rows):
+
+        python3 -c 'import chip_smoke; chip_smoke.genome_row_route()'
+    """
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import pipeline
+    from biseqt_tpu_torch.blot import WordBlot
+    from biseqt_tpu_torch.experiments.genome_homology import (
+        block_recall, rearranged_pair)
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    g = GENOME_RUN
+    # run_once's steps, its extension's route chosen here
+    A, B, truth = rearranged_pair(np.random.default_rng(g["seed"]),
+                                  g["size"], n_blocks=g["n_blocks"])
+    wb = WordBlot(A, B, wordlen=g["wordlen"], g_max=0.1, device=dev)
+    segs = list(wb.similar_segments(
+        K_min=max(g["size"] // g["n_blocks"] // 8, 200), p_min=0.6))
+    got = {}
+    for route, use_pallas in (("row", False), ("k1", None)):
+        t0 = time.perf_counter()
+        ext = pipeline.extend_segments(A, B, segs, use_pallas=use_pallas,
+                                       with_transcripts=True, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        txs = [s["transcript"] for s in ext]
+        n_ops = sum(len(t) for t in txs)
+        row = dict(size=g["size"], n_blocks=g["n_blocks"],
+                   n_segments=len(ext), block_recall=block_recall(ext, truth),
+                   seeds=len(wb.seed_index),
+                   extended_cells=sum(s["band_cells"] for s in ext),
+                   tx_total_ops=n_ops,
+                   tx_match_frac=round(sum(t.count("M") for t in txs)
+                                       / max(n_ops, 1), 4),
+                   n_discovered=len({s["source_index"] for s in ext}))
+        got[route] = (ext, row, seconds)
+        print("genome row route check, %s route (%s): %s, %.3f s; the JAX"
+              " package's CPU run %s" % (route, card, json.dumps(row),
+                                         seconds, json.dumps(GENOME_JAX_CPU)))
+    key = lambda s: (s["transcript"], s["origin_start"], s["mutate_start"])
+    differ = sum(key(a) != key(b) for a, b in zip(got["row"][0],
+                                                  got["k1"][0]))
+    print("genome row route check: %d of %d transcripts differ between the"
+          " routes; the row route %s the JAX package's CPU run"
+          % (differ, len(got["row"][0]),
+             "equals" if got["row"][1] == GENOME_JAX_CPU else "differs from"))
+    if got["row"][1] != GENOME_JAX_CPU:
+        fail("the row route at the genome config: %s, the JAX package's CPU"
+             " run %s" % (got["row"][1], GENOME_JAX_CPU))
+
+
 def main():
     import torch
 
@@ -2090,6 +2436,8 @@ def run(recall_reads, band_rows):
         fail("%d transcripts cover less than 90%% of their block" % short)
     print("transcripts: %d rescored exactly, all cover >= 90%% of their"
           " block" % len(out + narrow))
+    # phase 17 extends this batch again (phase 6 rebinds S and T)
+    smoke_batch = (S, T, segments, out, narrow, subst)
 
     # -- 4. kernels against their plain twins on one full launch --------
     idxs, LS, LT, W = max(launches, key=lambda launch: len(launch[0]))
@@ -2579,6 +2927,9 @@ def run(recall_reads, band_rows):
 
     # -- 16. the band-sharded engines and the checkpointed sweep --------
     sharded_phase(dev, card, *dna_pair, phase6, recall_reads)
+
+    # -- 17. the row route, use_pallas=False ------------------------------
+    row_route_phase(dev, card, *smoke_batch)
 
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",

@@ -206,6 +206,37 @@ def test_plain_twins_replayed_from_graphs_match_their_loop(rng, card,
     assert graphed_walk[0].any()
 
 
+@pytest.mark.parametrize("flags", FLAG_CASES)
+def test_row_engine_replayed_from_graphs_matches_its_loop(rng, card,
+                                                          monkeypatch, flags):
+    """On the card the row engine (``ops/banded_dp``, the row route's and
+    ``Aligner(backend="lax")``'s) replays chunks of rows from a CUDA
+    graph: scores, end cells and the whole plane equal its row-by-row
+    loop's and the CPU's, banded and full, with a tail after the last
+    whole chunk (300 rows: 128 as written, 128 replayed, 44 as
+    written)."""
+    from biseqt_tpu_torch.ops.banded_dp import banded_dp, full_dp
+
+    args, w_eff = mk_row_batch(rng)
+    kw = dict(subst=GENERAL, go=-3.0, ge=-0.5, flags=ModeFlags(**flags),
+              with_dirs=True)
+
+    def both(device):
+        on = [torch.as_tensor(x, device=device) for x in args]
+        return (banded_dp(*on, W=128, w_eff=torch.as_tensor(
+                    w_eff, device=device), device=device, **kw),
+                full_dp(*on[:4], device=device, **kw))
+
+    graphed = both(card)
+    cpu = both("cpu")
+    monkeypatch.setattr(steps, "GRAPH_CHUNK", 1 << 30)
+    looped = both(card)
+    for g, lp, c in zip(graphed, looped, cpu):
+        assert g.dirs.shape[1] == 300
+        _assert_results_equal(g, lp)
+        _assert_results_equal([x.cpu() for x in g], c)
+
+
 def _walk_plane(rng, kind, B2, Rp, W):
     """A walk's inputs ``(dirs, dminq, end_i, end_j)``.  ``random``:
     every source and gap bit pattern, so walks are short.  ``deep``:
@@ -312,8 +343,15 @@ def test_extend_segments_card_matches_cpu(rng, card):
                            device_walk=False, **kw)
     assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES == n_walk
     assert host == got
-    with pytest.raises(ValueError, match="use_pallas=False contradicts"):
-        extend_segments(S, T, segments, device=card, use_pallas=False, **kw)
+    # the row route on the card: the row engine there, no kernel
+    # launched, equal to the same route on the CPU
+    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    row = extend_segments(S, T, segments, device=card, use_pallas=False,
+                          **kw)
+    assert dp_ad.LAUNCHES == n_dp and walk.LAUNCHES == n_walk
+    assert row == extend_segments(S, T, segments, device="cpu",
+                                  use_pallas=False, **kw)
+    assert [seg["score"] for seg in row] == [seg["score"] for seg in got]
 
 
 def _three_launch_plan(rng):
@@ -357,6 +395,39 @@ def test_extend_segments_in_flight_equals_serial_on_the_card(
     monkeypatch.setattr(pipeline, "PIPELINE_BYTES", 0)
     serial = extend_segments(S, T, segments, device=card, **kw)
     assert dp_ad.LAUNCHES - n_dp == 6
+    assert in_flight == serial
+    assert serial == extend_segments(S, T, segments, device="cpu", **kw)
+    assert all(seg["score"] > 150 for seg in serial)
+
+
+def test_extend_segments_row_route_in_flight_on_the_card(rng, card,
+                                                         monkeypatch):
+    """The row route (``use_pallas=False``) on three launches: no kernel
+    launched, each dispatch queued without waiting for the card (CUDA's
+    sync debug mode set to raise around it), every launch in flight and
+    one at a time the same output, equal to the row route on the CPU."""
+    from biseqt_tpu_torch import pipeline
+
+    S, T, segments = _three_launch_plan(rng)
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
+              use_pallas=False)
+    assert len(pipeline.extension_plan(segments, len(S), len(T), True,
+                                       row=True)[3]) == 3
+    dispatch = pipeline._dispatch
+
+    def without_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(pipeline, "_dispatch", without_sync)
+    counts = (dp_ad.LAUNCHES, walk.LAUNCHES, dp_row.LAUNCHES)
+    in_flight = extend_segments(S, T, segments, device=card, **kw)
+    monkeypatch.setattr(pipeline, "PIPELINE_BYTES", 0)
+    serial = extend_segments(S, T, segments, device=card, **kw)
+    assert (dp_ad.LAUNCHES, walk.LAUNCHES, dp_row.LAUNCHES) == counts
     assert in_flight == serial
     assert serial == extend_segments(S, T, segments, device="cpu", **kw)
     assert all(seg["score"] > 150 for seg in serial)

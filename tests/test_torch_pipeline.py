@@ -82,7 +82,7 @@ def test_extend_segments_host_walk_matches(rng):
         **kw)
     pS, pT = from_reference(S), from_reference(T)
     on_host = pipeline.extend_segments(pS, pT, segments, device="cpu",
-                                       use_pallas=False, device_walk=False,
+                                       use_pallas=None, device_walk=False,
                                        **kw)
     on_device = pipeline.extend_segments(pS, pT, segments, device="cpu",
                                          **kw)
@@ -108,9 +108,9 @@ def test_extend_segments_takes_the_jax_keywords():
 
 @pytest.mark.parametrize("use_pallas", [None, False, True])
 def test_extend_segments_use_pallas_names_the_device(rng, use_pallas):
-    """``use_pallas`` must agree with ``device``: on the CPU, ``True``
-    (the kernels) raises before any work, ``None`` and ``False`` run the
-    plain twins."""
+    """``use_pallas=True`` asks for the kernels: on the CPU it raises
+    before any work.  ``None`` runs the plain twins there and ``False``
+    the row route."""
     S = from_reference(rand_seq(A4, 100, rng=rng))
     seg = [{"segment": ((-10, 10), (0, 200))}]
     if use_pallas:
@@ -445,11 +445,11 @@ def test_discover_and_extend_matches_composed_reference(seed, kw):
     np.testing.assert_allclose([s["p"] for s in got], [s["p"] for s in want],
                                rtol=1e-5, atol=1e-6)
     _rescores(S, T, got)
-    # score-only: the same scores, no transcripts (use_pallas=False
-    # names the CPU's plain twins)
+    # score-only: the same scores, no transcripts (use_pallas=None
+    # leaves the route to the device: the CPU's plain twins)
     plain = pipeline.discover_and_extend(from_reference(S),
                                          from_reference(T), device="cpu",
-                                         use_pallas=False, **kw, **ekw)
+                                         use_pallas=None, **kw, **ekw)
     assert [s["score"] for s in plain] == [s["score"] for s in got]
     assert all("transcript" not in s for s in plain)
 
