@@ -17,7 +17,13 @@
 //
 // What the design does about it.  One block per plane row (the two
 // pairs 2*b2 and 2*b2+1 on complementary parity lanes), one thread per
-// lane (two lanes per thread above 1024 lanes, four above 2048).  H, E,
+// lane (two lanes per thread above 1024 lanes, four above 2048).  Above
+// 4096 lanes a plane row is a thread-block cluster of nb blocks (at most
+// 8, or 16 where the card schedules such a cluster), each running the
+// same step body on its own contiguous W / nb lanes (2 lanes a thread up
+// to 16384 lanes, 4 above); a block's edge lanes read the neighbour
+// block's publish array through distributed shared memory and the step's
+// barrier is the cluster's.  H, E,
 // F and the per-lane maxima stay in registers for the whole sweep; each
 // step publishes max(H + go, E), max(H + go, F) and the two gap-extension
 // flags to a double-buffered shared array, so one __syncthreads per step
@@ -36,9 +42,10 @@
 // between a step's publish and its barrier and each load has a whole
 // step to arrive (the loads are volatile: left to itself the compiler
 // sinks them to their use).  Characters are read straight from the
-// [B, L] code rows; the substitution table lives in shared memory,
-// serves any alphabet up to 32 letters and holds the pad's score in an
-// extra slot, so the lookup needs no branch.  Each thread writes its
+// [B, L] code rows; the substitution table lives in dynamic shared
+// memory, A * A + 1 floats for any alphabet the int8 codes hold (at most
+// 127 letters), the pad's score in the extra slot, so the lookup needs
+// no branch.  Each thread writes its
 // own dirs byte on odd steps, coalesced along the lanes, through a row
 // pointer advanced each pair of steps (a plane can pass 2^31 bytes).
 //
@@ -53,8 +60,11 @@
 // update): direction nibbles come from float equality tests, so any
 // other rounding would flip ties.  Build with --fmad=false.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -106,26 +116,61 @@ __device__ __forceinline__ int load_code(const int8_t* p, bool in, int pad) {
     return v;
 }
 
+// The step's barrier: the block's, or the cluster's (release and
+// acquire at cluster scope, so the publish arrays of every block of the
+// plane row are visible after it).
+template <bool CL>
+__device__ __forceinline__ void step_barrier() {
+    if constexpr (CL)
+        cg::this_cluster().sync();
+    else
+        __syncthreads();
+}
+
 // LPT lanes per thread, lane m of thread t is t + m * blockDim.x.  ODD:
 // blockDim.x is odd, so lanes m and m + 1 of a thread have opposite
 // parities and lane m holds, in half h, the pair lane 0 holds in half
-// h ^ (m & 1).
-template <int LPT, bool ODD, int MODE>
+// h ^ (m & 1).  CL: the block is rank r of a cluster of nb = W / Wb
+// blocks that share plane row blockIdx.x / nb, and holds its lanes
+// [r * Wb, (r + 1) * Wb), Wb = LPT * blockDim.x (even, so a lane's
+// parity is its thread's); lane m of thread t is r * Wb + t + m * nt.
+template <int LPT, bool ODD, int MODE, bool CL = false>
 __global__ void __launch_bounds__(1024)
 dp_ad_kernel(Args g) {
+    static_assert(!(CL && ODD), "a cluster's blocks have even widths");
     extern __shared__ float smem[];
     const int W = g.W;
-    float* sE = smem;                    // [2][W]
-    float* sF = sE + 2 * W;              // [2][W]
-    float* tab = sF + 2 * W;             // [A * A + 1]: the pad's last
-    const int pad_slot = g.A * g.A;
-    uint8_t* sFl = reinterpret_cast<uint8_t*>(tab + pad_slot + 1);  // [2][W]
-
-    const int b2 = blockIdx.x;
-    const int tid = threadIdx.x;
     const int nt = blockDim.x;
+    const int Wb = CL ? LPT * nt : W;    // the lanes of this block
+    float* sE = smem;                    // [2][Wb]
+    float* sF = sE + 2 * Wb;             // [2][Wb]
+    float* tab = sF + 2 * Wb;            // [A * A + 1]: the pad's last
+    const int pad_slot = g.A * g.A;
+    uint8_t* sFl = reinterpret_cast<uint8_t*>(tab + pad_slot + 1);  // [2][Wb]
+
+    const int nb = CL ? W / Wb : 1;
+    const int b2 = CL ? blockIdx.x / nb : blockIdx.x;
+    const int rank = CL ? blockIdx.x - b2 * nb : 0;
+    const int k0 = rank * Wb;            // the block's first lane
+    const int tid = threadIdx.x;
     for (int x = tid; x < pad_slot; x += nt) tab[x] = g.table[x];
     if (tid == 0) tab[pad_slot] = g.pad_sub;
+    // the neighbour blocks' publish arrays (cyclic, as the band's lanes
+    // are): the lane above this block's top is lane 0 of rank + 1, the
+    // lane below its lane 0 is lane Wb - 1 of rank - 1
+    const float* upE = sE;
+    const uint8_t* upFl = sFl;
+    const float* dnF = sF;
+    const uint8_t* dnFl = sFl;
+    if constexpr (CL) {
+        cg::cluster_group cluster = cg::this_cluster();
+        const unsigned up = rank + 1 == nb ? 0 : rank + 1;
+        const unsigned dn = rank == 0 ? nb - 1 : rank - 1;
+        upE = cluster.map_shared_rank(sE, up);
+        upFl = cluster.map_shared_rank(sFl, up);
+        dnF = cluster.map_shared_rank(sF, dn) + Wb - 1;
+        dnFl = cluster.map_shared_rank(sFl, dn) + Wb - 1;
+    }
 
     const int mode = MODE == RUNTIME_MODE
                          ? g.flags | (g.with_dirs ? WITH_DIRS : 0) : MODE;
@@ -163,7 +208,7 @@ dp_ad_kernel(Args g) {
     int A0[LPT], A1[LPT], nib[LPT], sc[LPT], tc[LPT];
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-        const int kk = tid + m * nt;
+        const int kk = k0 + tid + m * nt;
         const float ok0 = (kk >= lo0 && kk < hi0) ? 0.0f : NEGF;
         const float ok1 = (kk >= lo1 && kk < hi1) ? 0.0f : NEGF;
 #pragma unroll
@@ -194,7 +239,9 @@ dp_ad_kernel(Args g) {
     auto lookup = [&](int s, int t) {
         return tab[(s < 0 || t < 0) ? pad_slot : s * g.A + t];
     };
-    __syncthreads();
+    // in a cluster: every block has started before any reads another's
+    // shared memory
+    step_barrier<CL>();
     // the substitution score of step 0 and the codes of step 1
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
@@ -215,34 +262,52 @@ dp_ad_kernel(Args g) {
                               ga0 + (float)(g.gd * (double)(r + 1))};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            float* bE = sE + h * W;
-            float* bF = sF + h * W;
-            uint8_t* bFl = sFl + h * W;
+            float* bE = sE + h * Wb;
+            float* bF = sF + h * Wb;
+            uint8_t* bFl = sFl + h * Wb;
             const float ga = gaH[h];
             float HpGo[LPT];
 #pragma unroll
             for (int m = 0; m < LPT; ++m) {
-                const int kk = tid + m * nt;
+                const int kx = tid + m * nt;
                 HpGo[m] = H1[m] + g.go;
-                bE[kk] = fmaxf(HpGo[m], E[m]);
-                bF[kk] = fmaxf(HpGo[m], F[m]);
-                bFl[kk] = (uint8_t)((E[m] >= HpGo[m] ? 1 : 0)
+                bE[kx] = fmaxf(HpGo[m], E[m]);
+                bF[kx] = fmaxf(HpGo[m], F[m]);
+                bFl[kx] = (uint8_t)((E[m] >= HpGo[m] ? 1 : 0)
                                     | (F[m] >= HpGo[m] ? 2 : 0));
             }
-            __syncthreads();
+            step_barrier<CL>();
 #pragma unroll
             for (int m = 0; m < LPT; ++m) {
-                const int kk = tid + m * nt;
+                const int kx = tid + m * nt;
+                const int kk = k0 + kx;
                 const int hh = (ODD && (m & 1)) ? h ^ 1 : h;
-                const int kr = (kk + 1 == W) ? 0 : kk + 1;   // E-pred lane
-                const int kl = (kk == 0) ? W - 1 : kk - 1;    // F-pred lane
                 // circular neighbours, NEG on the wrapped band edge: the
                 // gap carries are never damped on dead lanes, so a
                 // wrapped value would forge a band-crossing path
-                E[m] = bE[kr] + ((kk == W - 1) ? NEGF : 0.0f);
-                F[m] = bF[kl] + ((kk == 0) ? NEGF : 0.0f);
-                const int e4 = (bFl[kr] & 1) ? 4 : 0;
-                const int f8 = (bFl[kl] & 2) ? 8 : 0;
+                float eN, fN;
+                int flE, flF;
+                if constexpr (CL) {
+                    // only a thread's top lane can be the block's top,
+                    // and only its lane 0 the block's lane 0
+                    const bool top = m == LPT - 1 && kx + 1 == Wb;
+                    const bool bot = m == 0 && kx == 0;
+                    eN = top ? upE[h * Wb] : bE[kx + 1];
+                    flE = top ? upFl[h * Wb] : bFl[kx + 1];
+                    fN = bot ? dnF[h * Wb] : bF[kx - 1];
+                    flF = bot ? dnFl[h * Wb] : bFl[kx - 1];
+                } else {
+                    const int kr = (kk + 1 == W) ? 0 : kk + 1;   // E-pred
+                    const int kl = (kk == 0) ? W - 1 : kk - 1;    // F-pred
+                    eN = bE[kr];
+                    fN = bF[kl];
+                    flE = bFl[kr];
+                    flF = bFl[kl];
+                }
+                E[m] = eN + ((kk == W - 1) ? NEGF : 0.0f);
+                F[m] = fN + ((kk == 0) ? NEGF : 0.0f);
+                const int e4 = (flE & 1) ? 4 : 0;
+                const int f8 = (flF & 2) ? 8 : 0;
                 const float diag = H2[m] + sub[m];
                 float Hn = fmaxf(fmaxf(diag, E[m]), F[m]);
                 if (local_start) Hn = fmaxf(Hn, ga);
@@ -316,12 +381,15 @@ dp_ad_kernel(Args g) {
     }
 #pragma unroll
     for (int m = 0; m < LPT; ++m) {
-        const size_t o = (size_t)b2 * W + tid + m * nt;
+        const size_t o = (size_t)b2 * W + k0 + tid + m * nt;
         g.Ma[o] = M0[m] - g.undrift_a;
         g.Mb[o] = M1[m] - g.undrift_b;
         g.Aa[o] = A0[m];
         g.Ab[o] = A1[m];
     }
+    // in a cluster: no block leaves while a neighbour may still read its
+    // shared memory
+    if constexpr (CL) cg::this_cluster().sync();
 }
 
 // The kernel instance for W lanes (and whether it needs more than the
@@ -353,9 +421,77 @@ void (*pick(int W, int mode))(Args) {
     return instance<RUNTIME_MODE>(W);
 }
 
+// Above 4096 lanes: a cluster of nb blocks per plane row, each of
+// W / nb lanes at lpt lanes a thread.  2 lanes a thread (no spills)
+// while 8 blocks of at most 1024 threads cover W, else 4; the fewest
+// blocks whose width is a multiple of 2 * lpt (so that a lane's parity
+// is its thread's).  nb 0: no such cluster of at most MAX_CLUSTER.
+constexpr int MAX_CLUSTER = 16;      // the card's non-portable limit
+constexpr int PORTABLE_CLUSTER = 8;
+
+void cluster_shape(int W, int& lpt, int& nb) {
+    for (lpt = 2; lpt <= 4; lpt *= 2) {
+        const int cap = lpt == 2 ? PORTABLE_CLUSTER : MAX_CLUSTER;
+        for (nb = (W + 1024 * lpt - 1) / (1024 * lpt); nb <= cap; ++nb)
+            if (W % (nb * 2 * lpt) == 0) return;
+    }
+    lpt = 4;
+    nb = 0;
+}
+
+template <int MODE>
+void (*wide_instance(int lpt))(Args) {
+    if (lpt == 2) return dp_ad_kernel<2, false, MODE, true>;
+    return dp_ad_kernel<4, false, MODE, true>;
+}
+
+// The cluster instance that a launch of W > 4096 lanes under `mode` runs.
+void (*pick_wide(int lpt, int mode))(Args) {
+    if (mode == MAIN_MODE) return wide_instance<MAIN_MODE>(lpt);
+    if (mode == MAIN_SCORE_MODE) return wide_instance<MAIN_SCORE_MODE>(lpt);
+    return wide_instance<RUNTIME_MODE>(lpt);
+}
+
+// W: even, a multiple of 4 above 2048 and of 128 above 4096, with a
+// cluster shape; A: what int8 codes hold.
 bool bad_shape(int W, int A) {
-    return W < 2 || W % 2 || W > 4096 || (W > 2048 && W % 4) || A < 1
-           || A > 32;
+    if (W < 2 || W % 2 || (W > 2048 && W % 4) || A < 1 || A > 127)
+        return true;
+    if (W <= 4096) return false;
+    int lpt, nb;
+    cluster_shape(W, lpt, nb);
+    return W % 128 || nb == 0;
+}
+
+// The launch of W > 4096 lanes: its kernel, block, shared memory and
+// cluster attribute (non-portable sizes allowed above 8 blocks).
+cudaError_t wide_config(int W, int A, int mode, int B2, cudaStream_t st,
+                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                        void (*&kernel)(Args)) {
+    int lpt, nb;
+    cluster_shape(W, lpt, nb);
+    kernel = pick_wide(lpt, mode);
+    const int Wb = W / nb;
+    const size_t smem = smem_bytes(Wb, A);
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && nb > PORTABLE_CLUSTER)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3((unsigned)B2 * nb);
+    cfg.blockDim = dim3(Wb / lpt);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = nb;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return err;
 }
 
 }  // namespace
@@ -364,10 +500,44 @@ extern "C" const char* bst_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
+// The cluster that a launch of W > 4096 lanes runs (blocks, lanes a
+// thread) and how many such clusters the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run one), or a negative
+// CUDA error.  W <= 4096: one block, 0 lanes a thread reported.
+extern "C" int bst_dp_ad_cluster(int W, int A, int with_dirs, int device,
+                                 int* blocks, int* lanes_per_thread_out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    if (bad_shape(W, A)) return -(int)cudaErrorInvalidValue;
+    if (W <= 4096) {
+        *blocks = 1;
+        *lanes_per_thread_out = 0;
+        return 1;
+    }
+    int lpt, nb;
+    cluster_shape(W, lpt, nb);
+    *blocks = nb;
+    *lanes_per_thread_out = lpt;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    void (*kernel)(Args);
+    err = wide_config(W, A, MAIN_MODE & (with_dirs ? ~0 : ~WITH_DIRS), 1,
+                      nullptr, cfg, attr, kernel);
+    if (err != cudaSuccess) return -(int)err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return -(int)err;
+    }
+    return clusters;
+}
+
 // Launches the sweep over B2 plane rows on `stream` (no synchronisation)
 // and returns cudaGetLastError().  All pointers are device pointers;
-// W must be even and at most 4096 (a multiple of 4 above 2048), A at
-// most 32, R and Apad even.
+// W must be even, a multiple of 4 above 2048 and of 128 above 4096
+// (there a cluster of blocks a plane row, at most 16), A at most 127,
+// R and Apad even.
 extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
                          const void* t_lens, const void* dminq,
                          const void* lo, const void* hi, const void* table,
@@ -403,8 +573,20 @@ extern "C" int bst_dp_ad(const void* s, const void* t, const void* s_lens,
     g.Ab = static_cast<int32_t*>(Ab);
     g.dirs = static_cast<uint8_t*>(dirs);
     g.with_dirs = with_dirs;
+    const int mode = flags | (with_dirs ? WITH_DIRS : 0);
+    if (W > 4096) {
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr;
+        void (*kernel)(Args);
+        err = wide_config(W, A, mode, B2, static_cast<cudaStream_t>(stream),
+                          cfg, attr, kernel);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaLaunchKernelEx(&cfg, kernel, g);
+        if (err != cudaSuccess) return (int)err;
+        return (int)cudaGetLastError();
+    }
     const size_t smem = smem_bytes(W, A);
-    void (*kernel)(Args) = pick(W, flags | (with_dirs ? WITH_DIRS : 0));
+    void (*kernel)(Args) = pick(W, mode);
     if (smem > 48 * 1024) {
         // 18 W + 4 A^2 bytes pass the 48 KB default above W ~2700
         err = cudaFuncSetAttribute(kernel,

@@ -40,7 +40,15 @@
 //    its first lane's H_pre and F, double buffered by row parity; after
 //    it each warp reads the carry of the warps below, and the top thread
 //    of each warp forms the next warp's first lane's H itself (the same
-//    max and add), so no second exchange is needed.
+//    max and add), so no second exchange is needed;
+//  * above 4096 lanes, a thread-block cluster per pair: the fewest blocks
+//    of at most 16 warps (8 lanes a thread) that cover W, 16 at most,
+//    run the block-per-pair row as one block would, the pair's warps
+//    numbered across them.  The row barrier is the cluster's; each warp
+//    reads the published values of the warps below it, and the top
+//    thread of a block those of the next block's first warp, through
+//    distributed shared memory.  Score and end cell are reduced over the
+//    cluster at the end.
 // Nothing but the recurrence sits on the row chain.  The T codes live
 // in registers: lane k of row i + 1 reads the letter lane k + 1 read in
 // row i, so a thread's codes shift down one lane a row, its top one from
@@ -67,9 +75,12 @@
 // the E chain's maxes differs, and max is exact.  Build with
 // --fmad=false.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -87,6 +98,8 @@ constexpr int LOCAL = LOCAL_START | LOCAL_END;
 constexpr int OVERLAP = FREE_START_EDGES | FREE_END_EDGES;
 constexpr int RUNTIME = -1;
 constexpr unsigned FULL = 0xffffffffu;
+// the end cell's key: (3 * row + step) above the lane's 16 bits
+constexpr int KEY_LANE_BITS = 16;
 
 struct Args {
     const int8_t* s;
@@ -143,6 +156,29 @@ __device__ unsigned long long block_min(unsigned long long v,
     return warp_min(lane < nw ? red[lane] : ~0ull);
 }
 
+// Cluster-wide max and min of a value every thread of each block holds;
+// `slot` is a word of shared memory the reduction uses alone.
+__device__ float cluster_max(float v, float* slot) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) *slot = v;
+    cluster.sync();
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r)
+        v = fmaxf(v, *cluster.map_shared_rank(slot, r));
+    return v;
+}
+
+__device__ unsigned long long cluster_min(unsigned long long v,
+                                          unsigned long long* slot) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) *slot = v;
+    cluster.sync();
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+        const unsigned long long o = *cluster.map_shared_rank(slot, r);
+        v = o < v ? o : v;
+    }
+    return v;
+}
+
 // *p where `in` holds, else `pad`; no branch.  The load is volatile so
 // that the compiler issues it where the code places it, rows before its
 // use, and does not sink it to that use.
@@ -186,12 +222,15 @@ __device__ __forceinline__ void store_bytes(uint8_t* p, const uint32_t* pk) {
 
 // WPP: a warp per pair (W = 32 * LPT, a block of one warp); else a block
 // per pair of whole warps, the lanes from W up to blockDim.x * LPT dead.
-// DIRS: write the plane and track the end cell.  MODE: the flags, or
-// RUNTIME to read g.flags.
-template <int LPT, bool WPP, bool DIRS, int MODE>
+// CL: a cluster of such blocks per pair, rank r holding the pair's warps
+// [r * nw, (r + 1) * nw) (the lanes from W up dead).  DIRS: write the
+// plane and track the end cell.  MODE: the flags, or RUNTIME to read
+// g.flags.
+template <int LPT, bool WPP, bool DIRS, int MODE, bool CL = false>
 __global__ void __launch_bounds__(WPP ? 32 : 512)
 dp_row_kernel(Args g) {
     static_assert(LPT == 4 || LPT == 8, "LPT");
+    static_assert(!(CL && WPP), "a cluster is of blocks of warps");
     extern __shared__ float smem[];
     const int A = g.A, A1 = A + 1;
     float* tab = smem;                            // [(A + 1) * (A + 1)]
@@ -199,19 +238,30 @@ dp_row_kernel(Args g) {
     float* red = xch + 256;                       // [32]
     unsigned long long* redk =
         reinterpret_cast<unsigned long long*>(red + 32);   // [32]
+    unsigned long long* cred_key = redk + 32;     // [1], cluster mode
+    float* cred = reinterpret_cast<float*>(cred_key + 1);  // [2]
 
     const int tid = threadIdx.x;
     for (int x = tid; x < A1 * A1; x += blockDim.x) {
         const int r = x / A1, c = x - r * A1;
         tab[x] = c == A ? NEGF : (r == A ? 0.0f : g.table[r * A + c]);
     }
-    __syncthreads();
+    // in a cluster: every block has started before any reads another's
+    // shared memory
+    if constexpr (CL)
+        cg::this_cluster().sync();
+    else
+        __syncthreads();
 
     const int lane = tid & 31;
-    const int b = blockIdx.x;
-    const int w = WPP ? 0 : tid >> 5;         // warp within the pair
+    const int ncl = CL ? (int)cg::this_cluster().num_blocks() : 1;
+    const int b = CL ? blockIdx.x / ncl : blockIdx.x;
+    const int rank = CL ? blockIdx.x - b * ncl : 0;
+    const int w = WPP ? 0 : tid >> 5;         // warp within the block
     const int nw = WPP ? 1 : blockDim.x >> 5;
-    const bool has_next = !WPP && w + 1 < nw; // a warp of the pair above
+    const int gw = rank * nw + w;             // warp within the pair
+    // a warp of the pair above
+    const bool has_next = !WPP && (w + 1 < nw || rank + 1 < ncl);
 
     const int slen = g.s_lens[b], tlen = g.t_lens[b];
     // lanes past W (a block's last warp) are dead like those past w_eff
@@ -226,7 +276,7 @@ dp_row_kernel(Args g) {
     const bool track_end = DIRS && (track_local || track_col);
     const float go = g.go, ge = g.ge;
     const float lfloor = local_start ? 0.0f : NINF;   // H_pre's local floor
-    const int k0 = tid * LPT;
+    const int k0 = (rank * (int)blockDim.x + tid) * LPT;
     // this warp's top lane
     const int kt = k0 - lane * LPT + 32 * LPT - 1;
 
@@ -350,18 +400,48 @@ dp_row_kernel(Args g) {
                     buf[64 + w] = Hpre[0];
                     buf[96 + w] = Fn[0];
                 }
-                __syncthreads();
-                if (w > 0) {
+                if constexpr (CL) {
+                    cg::cluster_group cluster = cg::this_cluster();
+                    cluster.sync();
+                    // the slots of the pair's warp u, in its block
+                    auto slots = [&](int u) -> const float* {
+                        const int r = u / nw;
+                        float* p = buf + (u - r * nw);
+                        return r == rank ? p
+                                         : cluster.map_shared_rank(p, r);
+                    };
+                    // the max over the warps below the one below, a lane
+                    // each, then over the lanes (max regroups exactly)
                     float c2 = NINF;
-                    for (int u = 0; u + 1 < w; ++u) c2 = fmaxf(c2, buf[u]);
-                    carry = fmaxf(c2, buf[w - 1]);
-                    pprev0 = fmaxf(A0, fmaxf(c2, buf[32 + w - 1]));
-                }
-                if (has_next && lane == 31) {
-                    // the next warp's first lane, as that warp forms it
-                    const float E1 = fmaxf(A0, fmaxf(carry, x)) + gek1;
-                    nH = k1 < weff ? fmaxf(buf[64 + w + 1], E1) : NEGF;
-                    nF = buf[96 + w + 1];
+                    for (int u = lane; u + 1 < gw; u += 32)
+                        c2 = fmaxf(c2, slots(u)[0]);
+                    c2 = warp_max(c2);
+                    if (gw > 0) {
+                        const float* below = slots(gw - 1);
+                        carry = fmaxf(c2, below[0]);
+                        pprev0 = fmaxf(A0, fmaxf(c2, below[32]));
+                    }
+                    if (has_next && lane == 31) {
+                        const float* above = slots(gw + 1);
+                        const float E1 = fmaxf(A0, fmaxf(carry, x)) + gek1;
+                        nH = k1 < weff ? fmaxf(above[64], E1) : NEGF;
+                        nF = above[96];
+                    }
+                } else {
+                    __syncthreads();
+                    if (w > 0) {
+                        float c2 = NINF;
+                        for (int u = 0; u + 1 < w; ++u)
+                            c2 = fmaxf(c2, buf[u]);
+                        carry = fmaxf(c2, buf[w - 1]);
+                        pprev0 = fmaxf(A0, fmaxf(c2, buf[32 + w - 1]));
+                    }
+                    if (has_next && lane == 31) {
+                        // the next warp's first lane, as that warp forms it
+                        const float E1 = fmaxf(A0, fmaxf(carry, x)) + gek1;
+                        nH = k1 < weff ? fmaxf(buf[64 + w + 1], E1) : NEGF;
+                        nF = buf[96 + w + 1];
+                    }
                 }
             }
             // P at this thread's first lane, then at its other lanes
@@ -461,7 +541,8 @@ dp_row_kernel(Args g) {
         else
             v = fmaxf(v, (k == kcorner && ok) ? H[m] : NEGF);
     }
-    const float score = WPP ? warp_max(v) : block_max(v, red);
+    float score = WPP ? warp_max(v) : block_max(v, red);
+    if constexpr (CL) score = cluster_max(score, cred);
     int ei = slen, ek = kcorner;
     if (track_local || track_col) {
         ei = -1;
@@ -471,53 +552,142 @@ dp_row_kernel(Args g) {
         float lv = NINF;
 #pragma unroll
         for (int m = 0; m < LPT; ++m) lv = fmaxf(lv, lb[m]);
-        const float M = WPP ? warp_max(lv) : block_max(lv, red);
+        float M = WPP ? warp_max(lv) : block_max(lv, red);
+        if constexpr (CL) M = cluster_max(M, cred + 1);
         unsigned long long key = ~0ull;
 #pragma unroll
         for (int m = 0; m < LPT; ++m) {
             const unsigned long long c =
-                ((unsigned long long)lkey[m] << 13) | (unsigned)(k0 + m);
+                ((unsigned long long)lkey[m] << KEY_LANE_BITS)
+                | (unsigned)(k0 + m);
             if (lb[m] == M && c < key) key = c;
         }
         key = WPP ? warp_min(key) : block_min(key, redk);
-        ei = (int)((key >> 13) / 3);
-        ek = (int)(key & 8191);
+        if constexpr (CL) key = cluster_min(key, cred_key);
+        ei = (int)((key >> KEY_LANE_BITS) / 3);
+        ek = (int)(key & ((1u << KEY_LANE_BITS) - 1));
     }
-    if (tid == 0) {
+    if (tid == 0 && rank == 0) {
         g.score[b] = score;
         g.ei[b] = ei;
         g.ek[b] = ek;
     }
+    // in a cluster: no block leaves while another may still read its
+    // shared memory
+    if constexpr (CL) cg::this_cluster().sync();
+}
+
+// Raise the kernel's dynamic shared memory above the 48 KB default
+// where the table needs it (an alphabet above ~100 letters).
+cudaError_t allow_smem(void (*kernel)(Args), size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // a block per pair
 template <int LPT, bool WPP, bool DIRS, int MODE>
-void launch_one(const Args& g, int threads, size_t smem, cudaStream_t st) {
+cudaError_t launch_one(const Args& g, int threads, size_t smem,
+                       cudaStream_t st) {
+    cudaError_t err = allow_smem(dp_row_kernel<LPT, WPP, DIRS, MODE>, smem);
+    if (err != cudaSuccess) return err;
     dp_row_kernel<LPT, WPP, DIRS, MODE><<<g.B, threads, smem, st>>>(g);
+    return cudaSuccess;
 }
 
 template <int LPT, bool WPP, bool DIRS>
-void launch_mode(const Args& g, int threads, size_t smem, cudaStream_t st) {
+cudaError_t launch_mode(const Args& g, int threads, size_t smem,
+                        cudaStream_t st) {
     if (g.flags == LOCAL)
-        launch_one<LPT, WPP, DIRS, LOCAL>(g, threads, smem, st);
-    else if (g.flags == GLOBAL)
-        launch_one<LPT, WPP, DIRS, GLOBAL>(g, threads, smem, st);
-    else if (g.flags == OVERLAP)
-        launch_one<LPT, WPP, DIRS, OVERLAP>(g, threads, smem, st);
-    else
-        launch_one<LPT, WPP, DIRS, RUNTIME>(g, threads, smem, st);
+        return launch_one<LPT, WPP, DIRS, LOCAL>(g, threads, smem, st);
+    if (g.flags == GLOBAL)
+        return launch_one<LPT, WPP, DIRS, GLOBAL>(g, threads, smem, st);
+    if (g.flags == OVERLAP)
+        return launch_one<LPT, WPP, DIRS, OVERLAP>(g, threads, smem, st);
+    return launch_one<LPT, WPP, DIRS, RUNTIME>(g, threads, smem, st);
 }
 
 template <int LPT, bool WPP>
-void launch(const Args& g, bool with_dirs, int threads, size_t smem,
-            cudaStream_t st) {
-    if (with_dirs)
-        launch_mode<LPT, WPP, true>(g, threads, smem, st);
-    else
-        launch_mode<LPT, WPP, false>(g, threads, smem, st);
+cudaError_t launch(const Args& g, bool with_dirs, int threads, size_t smem,
+                   cudaStream_t st) {
+    if (with_dirs) return launch_mode<LPT, WPP, true>(g, threads, smem, st);
+    return launch_mode<LPT, WPP, false>(g, threads, smem, st);
+}
+
+constexpr int PORTABLE_CLUSTER = 8;
+constexpr int MAX_CLUSTER = 16;      // the card's non-portable limit
+constexpr int CLUSTER_LPT = 8;
+
+// A cluster of `cluster` blocks per pair (8 lanes a thread, the run-time
+// flags): its kernel, grid, shared memory and cluster attribute
+// (non-portable sizes allowed above 8 blocks).
+cudaError_t cluster_config(int B, bool with_dirs, int threads, size_t smem,
+                           int cluster, cudaStream_t st,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           void (*&kernel)(Args)) {
+    kernel = with_dirs ? dp_row_kernel<CLUSTER_LPT, false, true, RUNTIME, true>
+                       : dp_row_kernel<CLUSTER_LPT, false, false, RUNTIME,
+                                       true>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err == cudaSuccess && cluster > PORTABLE_CLUSTER)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3((unsigned)B * cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return err;
+}
+
+// A block's shared memory: the padded table, the warps' exchange, the
+// block's and the cluster's reductions.
+size_t smem_bytes(int A) {
+    const int A1 = A + 1;
+    return sizeof(float) * (((A1 * A1 + 1) & ~1) + 256 + 32 + 2)
+           + sizeof(unsigned long long) * 33;
+}
+
+// Threads a block of a launch in `cluster` blocks a pair: the fewest
+// whole warps of lpt lanes that cover the block's share of W.
+int block_threads(int W, int lpt, int cluster) {
+    const int warps = (W + 32 * lpt - 1) / (32 * lpt);
+    return (warps + cluster - 1) / cluster * 32;
 }
 
 }  // namespace
+
+// How many clusters of `cluster` blocks a pair of W lanes the card holds
+// at once (cudaOccupancyMaxActiveClusters; 0: it cannot run one), or a
+// negative CUDA error.
+extern "C" int bst_dp_row_clusters(int W, int A, int with_dirs, int cluster,
+                                   int device) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    if (cluster < 2 || cluster > MAX_CLUSTER || A < 1 || A > 127)
+        return -(int)cudaErrorInvalidValue;
+    const int threads = block_threads(W, CLUSTER_LPT, cluster);
+    if (threads > 512) return -(int)cudaErrorInvalidConfiguration;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    void (*kernel)(Args);
+    err = cluster_config(1, with_dirs != 0, threads, smem_bytes(A), cluster,
+                         nullptr, cfg, attr, kernel);
+    if (err != cudaSuccess) return -(int)err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return -(int)err;
+    }
+    return clusters;
+}
 
 extern "C" const char* bst_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
@@ -525,28 +695,31 @@ extern "C" const char* bst_cuda_error_string(int code) {
 
 // Launches the row sweep over B pairs on `stream` (no synchronisation)
 // and returns cudaGetLastError().  All pointers are device pointers;
-// W must be a multiple of 128 and at most 4096, A at most 64.  The
-// geometry: `lpt` (4 or 8) lanes a thread; with `warp_per_pair` a warp
-// per pair (W = 32 * lpt, a block of one warp), else a block per pair of
-// the fewest warps that cover W (at most 512 threads).  The dirs plane
-// [B, LS, W] must be zeroed by the caller: rows past a pair's length are
-// not written.
+// W must be a multiple of 128, A at most 127.  The geometry: `lpt` (4 or
+// 8) lanes a thread; with `warp_per_pair` a warp per pair (W = 32 * lpt,
+// a block of one warp), else a block per pair of the fewest warps that
+// cover W (at most 512 threads), or with `cluster` > 1 a cluster of that
+// many blocks per pair (8 lanes a thread, at most 16 blocks of at most
+// 512 threads).  The dirs plane [B, LS, W] must be zeroed by the caller:
+// rows past a pair's length are not written.
 extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
                           const void* t_lens, const void* dmax,
                           const void* w_eff, const void* table, int A,
                           int B, int LS, int LT, int W, int flags,
                           float go, float ge, float gg, void* score,
                           void* ei, void* ek, void* dirs, int with_dirs,
-                          int lpt, int warp_per_pair, int device,
-                          void* stream) {
+                          int lpt, int warp_per_pair, int cluster,
+                          int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (W < 128 || W % 128 || W > 4096 || A < 1 || A > 64)
+    if (W < 128 || W % 128 || A < 1 || A > 127)
         return (int)cudaErrorInvalidValue;
     const bool wpp = warp_per_pair != 0;
-    if ((lpt != 4 && lpt != 8) || (wpp && W != 32 * lpt))
+    if ((lpt != 4 && lpt != 8) || (wpp && W != 32 * lpt)
+        || cluster < 1 || cluster > MAX_CLUSTER
+        || (cluster > 1 && (wpp || lpt != CLUSTER_LPT)))
         return (int)cudaErrorInvalidConfiguration;
-    const int threads = wpp ? 32 : (W + 32 * lpt - 1) / (32 * lpt) * 32;
+    const int threads = wpp ? 32 : block_threads(W, lpt, cluster);
     if (threads > 512) return (int)cudaErrorInvalidConfiguration;
     if (B == 0) return 0;
     Args g;
@@ -564,18 +737,23 @@ extern "C" int bst_dp_row(const void* s, const void* t, const void* s_lens,
     g.ei = static_cast<int32_t*>(ei);
     g.ek = static_cast<int32_t*>(ek);
     g.dirs = static_cast<uint8_t*>(dirs);
-    const int A1 = A + 1;
-    const size_t smem = sizeof(float) * (((A1 * A1 + 1) & ~1) + 256 + 32)
-                        + sizeof(unsigned long long) * 32;
+    const size_t smem = smem_bytes(A);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bool d = with_dirs != 0;
-    if (wpp) {
-        if (lpt == 4) launch<4, true>(g, d, threads, smem, st);
-        else launch<8, true>(g, d, threads, smem, st);
-    } else if (lpt == 4) {
-        launch<4, false>(g, d, threads, smem, st);
+    if (cluster > 1) {
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr;
+        void (*kernel)(Args);
+        err = cluster_config(B, d, threads, smem, cluster, st, cfg, attr,
+                             kernel);
+        if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, g);
+    } else if (wpp) {
+        err = lpt == 4 ? launch<4, true>(g, d, threads, smem, st)
+                       : launch<8, true>(g, d, threads, smem, st);
     } else {
-        launch<8, false>(g, d, threads, smem, st);
+        err = lpt == 4 ? launch<4, false>(g, d, threads, smem, st)
+                       : launch<8, false>(g, d, threads, smem, st);
     }
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

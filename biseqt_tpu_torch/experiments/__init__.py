@@ -9,6 +9,21 @@ hand-written CUDA kernel for Hopper, its plain PyTorch version and a
 * :mod:`.i16_probe` (``experiments/mosaic_i16_probe.py``): ten int16 ops
   done the way a 16-bit DP would do them, two per 32-bit register.
 
+The four probes that time the port's own path on the card (the JAX
+scripts' functions, arguments and JSON keys, less the TPU's knobs; each
+a ``run(..., device="cuda")`` that returns its JSON dict and a
+``main()`` that prints it):
+
+* :mod:`.pipeline_tx_probe` (``experiments/pipeline_tx_probe.py``):
+  ``extend_segments`` with transcripts, the device walk against the
+  host walk;
+* :mod:`.walk_probe` (``experiments/walk_probe.py``): the walk kernel
+  against the host walker, then DP and walk throughput;
+* :mod:`.adkernel_probe` (``experiments/adkernel_probe.py``): K1 against
+  K4 (score parity), then K1 serialised and pipelined;
+* :mod:`.txpath_probe` (``experiments/txpath_probe.py``): the copy to
+  the card, the DP, and the DP and walk with and without a host wait.
+
 The user-facing experiments, one module per JAX script with its
 functions' names, arguments, defaults, printed lines and dump-row keys
 (so :mod:`.figures` renders either package's dumps), each computing on
@@ -28,6 +43,7 @@ functions' names, arguments, defaults, printed lines and dump-row keys
 * :mod:`.figures` and :mod:`.util`: the plots and the helpers.
 
     python -m biseqt_tpu_torch.experiments.transpose_probe
+    python -m biseqt_tpu_torch.experiments.walk_probe
     python -m biseqt_tpu_torch.experiments.genome_homology --transcripts
     python -m biseqt_tpu_torch.experiments.wordblot_recall --quick
 """

@@ -46,22 +46,30 @@ from .banded_dp import NEG, DPResult, ModeFlags, on_device, resolve_device
 from .steps import put, run_steps, take
 
 __all__ = ["banded_dp_ad", "banded_dp_ad_reference", "parity_adjusted_dmin",
-           "live_nibbles", "LAUNCHES"]
+           "live_nibbles", "cluster", "LAUNCHES", "MAX_W", "MAX_A"]
 
 # CUDA kernel launches made by banded_dp_ad (never by the plain twin)
 LAUNCHES = 0
 
 PAD_S = -1        # s pad code (never equals a t code)
 PAD_T = -2
-MAX_W = 4096      # kernel: 1024 threads x 4 lanes each
-MAX_A = 32        # kernel: the A x A table lives in shared memory
+# the widest band the kernel takes: above 4096 lanes a plane row is a
+# thread-block cluster of at most 16 blocks of 4096 lanes; above
+# PORTABLE_W (8 blocks, the portable cluster size) the wrapper first asks
+# the card whether it holds such a cluster
+MAX_W = 65536
+PORTABLE_W = 32768
+MAX_A = 127       # letter codes are int8, the pads -1 and -2
+# the routes that take any W
+WIDE_ROUTES = ("extend_segments(use_pallas=False) (the row route) or"
+               " parallel.band_sharded_ad_traceback")
 
 _NEGF = np.float32(NEG)
 
 # the mangled-name stem of the kernel instance that the main path
 # launches (extend_segments: W <= 1024, local mode with directions:
-# dp_ad_kernel<1, false, MAIN_MODE>), to find it in the SASS
-MAIN_KERNEL = "dp_ad_kernelILi1ELb0ELi26EE"
+# dp_ad_kernel<1, false, MAIN_MODE, false>), to find it in the SASS
+MAIN_KERNEL = "dp_ad_kernelILi1ELb0ELi26ELb0EE"
 
 
 def parity_adjusted_dmin(dmin, pair_index):
@@ -135,9 +143,9 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
               go, ge, r_chunk, device):
     """Pad the batch to whole plane rows and derive the per-pair lane
     geometry and the f32 constants both engines use."""
-    if W < 2 or W % 2 or W > MAX_W or (W > 2048 and W % 4):
-        raise ValueError("W must be even, a multiple of 4 above 2048, and"
-                         " in [2, MAX_W = %d], got %d" % (MAX_W, W))
+    if W < 2 or W % 2 or (W > 2048 and W % 4) or (W > 4096 and W % 128):
+        raise ValueError("W must be even, at least 2, a multiple of 4 above"
+                         " 2048 and of 128 above 4096, got %d" % W)
     if not (go <= 0 and ge <= 0):
         raise ValueError("the kernel requires nonpositive gap scores")
     if r_chunk < 2 or r_chunk % 2:
@@ -183,8 +191,8 @@ def _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
     table, pad_sub = _subst_table(subst, gd)
     A = table.shape[0]
     if A > MAX_A:
-        raise ValueError("alphabets above %d letters are not supported"
-                         % MAX_A)
+        raise ValueError("alphabets above %d letters do not fit the int8"
+                         " letter codes" % MAX_A)
     # the kernel indexes its shared-memory table with the codes
     if B and code_hi >= A:
         raise ValueError("letter codes must lie below the alphabet size %d"
@@ -362,9 +370,21 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
     from .. import _build
     from ..native import _flags_of
 
-    lib = _build.load("dp_ad", _declare)
     dev = g["s_codes"].device
     W, B2, Apad = g["W"], g["B2"], g["Apad"]
+    if W > MAX_W:
+        raise ValueError(
+            "the kernel takes bands of up to MAX_W = %d lanes (a cluster of"
+            " 16 blocks), got W %d; wider bands run on %s"
+            % (MAX_W, W, WIDE_ROUTES))
+    if W > PORTABLE_W:
+        blocks, _, held = cluster(W, g["table"].shape[0], with_dirs, dev)
+        if held < 1:
+            raise ValueError(
+                "W %d needs a cluster of %d blocks, which this card cannot"
+                " hold; it runs up to PORTABLE_W = %d lanes, wider bands on"
+                " %s" % (W, blocks, PORTABLE_W, WIDE_ROUTES))
+    lib = _build.load("dp_ad", _declare)
     Ma = torch.empty((B2, W), dtype=torch.float32, device=dev)
     Mb = torch.empty_like(Ma)
     Aa = torch.empty((B2, W), dtype=torch.int32, device=dev)
@@ -390,7 +410,26 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
     return Ma, Mb, Aa, Ab, dirs
 
 
+def cluster(W: int, A: int = 4, with_dirs: bool = True, device="cuda"):
+    """``(blocks, lanes_per_thread, clusters)`` of a launch of ``W``
+    lanes on a CUDA ``device``: the blocks of a plane row (1 at W <= 4096,
+    lanes a thread then reported 0) and how many such clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; 0: none)."""
+    from .. import _build
+
+    device = resolve_device(device)
+    lib = _build.load("dp_ad", _declare)
+    blocks, lpt = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.bst_dp_ad_cluster(W, A, int(with_dirs), device.index or 0,
+                               ctypes.byref(blocks), ctypes.byref(lpt))
+    _build.check(lib, -rc if rc < 0 else 0, "dp_ad cluster query")
+    return blocks.value, lpt.value, rc
+
+
 def _declare(lib):
+    lib.bst_dp_ad_cluster.restype = ctypes.c_int
+    lib.bst_dp_ad_cluster.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
     lib.bst_dp_ad.restype = ctypes.c_int
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bst_dp_ad.argtypes = [
@@ -460,8 +499,10 @@ def banded_dp_ad(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
     ``s_codes`` int8 [B, LS], ``t_codes`` int8 [B, LT], ``s_lens`` /
     ``t_lens`` / ``dmin`` / ``w_eff`` int32 [B].  The band of pair b is
     the TOP ``min(w_eff, W - 1)`` diagonals of ``[dmin, dmin + W)``
-    (one lane of slack absorbs the parity adjustment).  ``subst``
-    [A, A]; ``go, ge <= 0``.
+    (one lane of slack absorbs the parity adjustment); ``W`` is even, a
+    multiple of 4 above 2048 and of 128 above 4096 (the kernel takes up
+    to :data:`MAX_W`, the twin any).  ``subst`` [A, A], ``A`` at most
+    127; ``go, ge <= 0``.
 
     Returns :class:`DPResult`: ``score`` f32 [B]; without ``with_dirs``
     ``end_i`` / ``end_j`` are -1 sentinels and ``dirs`` is empty; with

@@ -48,42 +48,63 @@ from .banded_dp import (NEG, DPResult, ModeFlags, on_device, resolve_device,
                         shift_lanes)
 
 __all__ = ["banded_dp_row", "banded_dp_row_reference", "plan", "sm_count",
-           "Geometry", "LAUNCHES"]
+           "clusters", "Geometry", "LAUNCHES", "MAX_W", "MAX_A"]
 
 # CUDA kernel launches made by banded_dp_row (never by the plain twin)
 LAUNCHES = 0
 
-MAX_W = 4096      # kernel: at most 512 threads x 8 lanes each
-MAX_A = 64        # kernel: the A x A table lives in shared memory
+# the widest band the kernel takes: above 4096 lanes a pair is a
+# thread-block cluster of at most 16 blocks of 512 threads x 8 lanes;
+# above PORTABLE_W (8 blocks, the portable cluster size) the wrapper
+# first asks the card whether it holds such a cluster
+MAX_W = 65536
+PORTABLE_W = 32768
+MAX_A = 127       # letter codes are int8
+# the routes that take any W
+WIDE_ROUTES = ("Aligner(backend=\"native\") or \"lax\", or"
+               " parallel.banded_dp_band_sharded")
 
 # The kernel's instances (csrc/dp_row.cu): lanes a thread owns, for a
-# warp per pair (W = 32 * LPT, one warp a block) and for a block per pair
-# (the fewest warps that cover W, at most MAX_BLOCK_THREADS threads).
+# warp per pair (W = 32 * LPT, one warp a block), for a block per pair
+# (the fewest warps that cover W, at most MAX_BLOCK_THREADS threads) and
+# for a cluster of such blocks per pair (CLUSTER_LPT lanes a thread, at
+# most MAX_CLUSTER blocks).
 WARP_LPT = (4, 8)
 BLOCK_LPT = (4, 8)
 MAX_BLOCK_THREADS = 512
+CLUSTER_LPT = 8
+MAX_CLUSTER = 16
 
 _NEGF = np.float32(NEG)
 
 
 class Geometry(NamedTuple):
     """A launch of the kernel: ``lpt`` consecutive lanes a thread, a warp
-    per pair (one a block) or a block per pair."""
+    per pair (one a block), a block per pair, or a cluster of ``cluster``
+    blocks per pair."""
 
     lpt: int
     warp_per_pair: bool
+    cluster: int = 1
 
     def threads(self, W: int) -> int:
         """Threads a block: one warp, or the fewest whole warps that cover
-        W (the last one's lanes past W dead)."""
-        return 32 if self.warp_per_pair else -(-W // (32 * self.lpt)) * 32
+        the block's share of W (lanes past W dead)."""
+        if self.warp_per_pair:
+            return 32
+        warps = -(-W // (32 * self.lpt))
+        return -(-warps // self.cluster) * 32
 
     def check(self, W: int) -> None:
         """Raise unless the kernel has this instance for W lanes."""
         if self.warp_per_pair:
-            ok = self.lpt in WARP_LPT and W == 32 * self.lpt
+            ok = (self.lpt in WARP_LPT and W == 32 * self.lpt
+                  and self.cluster == 1)
+        elif self.cluster > 1:
+            ok = (self.lpt == CLUSTER_LPT and self.cluster <= MAX_CLUSTER
+                  and self.threads(W) <= MAX_BLOCK_THREADS)
         else:
-            ok = (self.lpt in BLOCK_LPT
+            ok = (self.lpt in BLOCK_LPT and self.cluster == 1
                   and self.threads(W) <= MAX_BLOCK_THREADS)
         if not ok:
             raise ValueError("the kernel has no instance %r for W %d"
@@ -97,9 +118,14 @@ def plan(B: int, W: int, with_dirs: bool = False, *, sms: int) -> Geometry:
     block barrier in the row loop.  Wider bands take a block per pair,
     one barrier a row, 8 lanes a thread (fewest warps), except with
     directions on fewer pairs than SMs: there 4 (8 a thread issue the
-    longer directions code on too few schedulers)."""
+    longer directions code on too few schedulers).  Above 4096 lanes a
+    pair takes the fewest blocks of at most 512 threads x 8 lanes, as a
+    cluster."""
     if W % 32 == 0 and W // 32 in WARP_LPT:
         return Geometry(W // 32, True)
+    if W > CLUSTER_LPT * MAX_BLOCK_THREADS:
+        per_block = CLUSTER_LPT * MAX_BLOCK_THREADS
+        return Geometry(CLUSTER_LPT, False, -(-W // per_block))
     fits4 = W <= 4 * MAX_BLOCK_THREADS
     return Geometry(4 if with_dirs and B < sms and fits4 else 8, False)
 
@@ -122,9 +148,8 @@ def _table(subst: np.ndarray) -> np.ndarray:
 def _prepare(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
              go, ge, A, device):
     """Check the inputs and derive what both engines use."""
-    if W % 128 or not 128 <= W <= MAX_W:
-        raise ValueError("W must be a multiple of 128 in [128, %d], got %d"
-                         % (MAX_W, W))
+    if W % 128 or W < 128:
+        raise ValueError("W must be a positive multiple of 128, got %d" % W)
     if not (go <= 0 and ge <= 0):
         raise ValueError("the kernel requires nonpositive gap scores")
     subst = np.asarray(subst, np.float32)
@@ -135,8 +160,8 @@ def _prepare(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, *, W, subst,
     if A != subst.shape[0]:
         raise ValueError("A = %d but subst is %s" % (A, subst.shape))
     if A > MAX_A:
-        raise ValueError("alphabets above %d letters are not supported"
-                         % MAX_A)
+        raise ValueError("alphabets above %d letters do not fit the int8"
+                         " letter codes" % MAX_A)
     s_codes = on_device(s_codes, torch.int8, device)
     t_codes = on_device(t_codes, torch.int8, device)
     B, LS = s_codes.shape
@@ -306,7 +331,17 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
     from ..native import _flags_of
 
     B, LS, W = g["B"], g["LS"], g["W"]
+    if W > MAX_W:
+        raise ValueError(
+            "the kernel takes bands of up to MAX_W = %d lanes (a cluster of"
+            " 16 blocks), got W %d; wider bands run on %s"
+            % (MAX_W, W, WIDE_ROUTES))
     dev = g["s_codes"].device
+    if W > PORTABLE_W and clusters(W, g["A"], with_dirs, dev) < 1:
+        raise ValueError(
+            "W %d needs a cluster of %d blocks, which this card cannot hold;"
+            " it runs up to PORTABLE_W = %d lanes, wider bands on %s"
+            % (W, plan(1, W, sms=1).cluster, PORTABLE_W, WIDE_ROUTES))
     geo = (plan(B, W, with_dirs, sms=sm_count(dev)) if geometry is None
            else geometry)
     geo.check(W)
@@ -324,7 +359,7 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
         ptr(g["table"]), g["A"], B, LS, g["LT"], W, _flags_of(flags),
         f(g["go"]), f(g["ge"]), f(g["gg"]),
         ptr(score), ptr(ei), ptr(ek), ptr(dirs), int(with_dirs),
-        geo.lpt, int(geo.warp_per_pair), dev.index,
+        geo.lpt, int(geo.warp_per_pair), geo.cluster, dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(lib, rc, "dp_row launch")
@@ -338,7 +373,24 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def clusters(W: int, A: int = 4, with_dirs: bool = True, device="cuda"):
+    """How many clusters of :func:`plan`'s blocks for a pair of ``W``
+    lanes (above 4096) the card ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot run one)."""
+    from .. import _build
+
+    device = resolve_device(device)
+    lib = _build.load("dp_row", _declare)
+    geo = plan(1, W, with_dirs, sms=1)
+    rc = lib.bst_dp_row_clusters(W, A, int(with_dirs), geo.cluster,
+                                 device.index or 0)
+    _build.check(lib, -rc if rc < 0 else 0, "dp_row cluster query")
+    return rc
+
+
 def _declare(lib):
+    lib.bst_dp_row_clusters.restype = ctypes.c_int
+    lib.bst_dp_row_clusters.argtypes = [ctypes.c_int] * 5
     lib.bst_dp_row.restype = ctypes.c_int
     v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bst_dp_row.argtypes = [
@@ -347,7 +399,7 @@ def _declare(lib):
         i, i, i, i, i,                  # B, LS, LT, W, flags
         f, f, f,                        # go, ge, go + ge
         v, v, v, v, i,                  # score, ei, ek, dirs, with_dirs
-        i, i,                           # lpt, warp_per_pair
+        i, i, i,                        # lpt, warp_per_pair, cluster
         i, v,                           # device, stream
     ]
 
@@ -373,9 +425,9 @@ def banded_dp_row(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
     Inputs (numpy arrays, or tensors already on ``device``):
     ``s_codes`` [B, LS] and ``t_codes`` [B, LT] letter codes (below
     ``A``; negative codes are PAD), ``s_lens`` / ``t_lens`` / ``dmin`` /
-    ``w_eff`` int32 [B].  ``W`` is a multiple of 128 (at most
-    :data:`MAX_W`); ``subst`` [A, A] with ``A`` defaulting to its size;
-    ``go, ge <= 0``.
+    ``w_eff`` int32 [B].  ``W`` is a multiple of 128 (the kernel takes up
+    to :data:`MAX_W`, the twin any); ``subst`` [A, A] with ``A``
+    (at most 127) defaulting to its size; ``go, ge <= 0``.
 
     Returns :class:`DPResult` (contract: module docstring).  On a CUDA
     ``device`` this launches the kernel of ``csrc/dp_row.cu`` (built on

@@ -183,7 +183,19 @@ Phases, each of which exits non-zero on failure:
    band-filling segment (600.0, against 9.0 on the kernels' route) and
    ``discover_and_extend`` on a rearranged 100 kbp pair, equal to the
    JAX package's row route on the CPU exactly (``ROW_ROUTE_JAX_CPU``),
-   beside the kernels' route on the same input.
+   beside the kernels' route on the same input;
+18. runs bands above 4096 lanes, where a plane row of K1 and a pair of
+   K4 is a thread-block cluster (``wide_phase``, ``WIDE_WS``): both
+   kernels against their twins at W 6144-65536 byte for byte, timed
+   beside their bounds; ``extend_segments`` on a segment of 7001
+   diagonals (W 8192) with its launches counted, no twin reached, every
+   transcript rescored and every score equal to the row route's; the
+   Aligner on phase 6's pair with a 12001-diagonal band on K1, K4 and
+   the C++ engine, the three scores equal;
+19. runs the four path probes (``pipeline_tx_probe``, ``walk_probe``,
+   ``adkernel_probe``, ``txpath_probe``) at the JAX scripts' default
+   sizes, each printing its JSON line, and requires the walks to agree,
+   no transcript mismatch and K1 and K4 scores equal.
 
 Prints a kernels JSON line (per kernel: launches on its path, kernel,
 plain and library milliseconds, and the bound: the least time the card
@@ -192,7 +204,9 @@ for the DP and walk kernels also their launches on each path, their
 times and bounds at the discovery path's largest launch, and the
 twins' time and error on the launch held to them; for the DP kernel
 also the protein path's times and bound and the in-flight queue's
-walls and peaks),
+walls and peaks; for both DP kernels a ``wide`` record per W of phase
+18: cluster size, kernel and plain milliseconds, the twin's error, the
+bound and the kernel's share of it),
 then the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Fails (exit code not 0, no result)
 without a CUDA card or outside the repository.
@@ -371,6 +385,26 @@ ROW_ROUTE = dict(size=100_000, blocks=4, seed=20261022, wordlen=12,
 ROW_ROUTE_JAX_CPU = dict(
     n_segments=4, scores=[19040.0, 19031.0, 18834.0, 18715.0],
     tx_total_ops=100861, sha1="857048dce96f95bf35f3bcfd884f4d1c4b7f2e57")
+# phase 18: bands above 4096 lanes, each plane row of K1 and each pair
+# of K4 a thread-block cluster.  (i) Both kernels against their twins at
+# every W of the bucket grid from 6144, and at the two past the portable
+# cluster size: K1 on three pairs of 10 kbp, one whose T is long enough
+# that its band spans every lane and two aligned along the lanes where
+# the cluster's blocks meet, in the main path's local mode with and
+# without directions, and in the run-time global mode on their first
+# 2 kbp; K4 on three pairs of 2000 rows laid out the same way, local,
+# with and without directions.  (ii) extend_segments on two 200 kbp
+# sequences whose 30 kbp homologous block (5% substitutions) carries a
+# 7 kbp insertion in T: its segment spans 7001 diagonals (W 8192).
+# (iii) Phase 6's pair through the Aligner with a 12001-diagonal band
+# (W 12288) on both kernels and the C++ engine.
+WIDE_WS = (6144, 8192, 12288, 16384, 24576, 32768, 49152, 65536)
+WIDE_K1 = dict(length=10_000, flag_len=2000)
+WIDE_K4_ROWS = 2000
+WIDE_EXTENSION = dict(size=200_000, block_at=(60_000, 50_000),
+                      block=30_000, insertion=7000, sub=0.05,
+                      seed=20261023)
+WIDE_ALIGNER_BAND = (-6000, 6000)
 
 
 def fail(msg):
@@ -2307,6 +2341,359 @@ def genome_row_route():
              " run %s" % (got["row"][1], GENOME_JAX_CPU))
 
 
+def band_cells(np, s_lens, t_lens, d_lo, d_hi):
+    """Cells of each pair's matrix (1 <= i <= s_len, 1 <= j <= t_len) on
+    the diagonals d = i - j in [d_lo, d_hi], summed over the pairs."""
+    total = 0
+    for ls, lt, lo, hi in zip(s_lens, t_lens, d_lo, d_hi):
+        d = np.arange(int(lo), int(hi) + 1)
+        total += int(np.clip(np.minimum(ls, lt + d) - np.maximum(1, 1 + d)
+                             + 1, 0, None).sum())
+    return total
+
+
+def packed(np, seqs):
+    """int8 [len(seqs), longest] rows (zero-padded) and int32 lengths."""
+    out = np.zeros((len(seqs), max(len(x) for x in seqs)), np.int8)
+    for b, x in enumerate(seqs):
+        out[b, :len(x)] = x
+    return out, np.array([len(x) for x in seqs], np.int32)
+
+
+def dp_ad_equal(torch, got, want, dmin, w_eff, W):
+    """K1's outputs against its twin's: scores, end cells, and the dirs
+    plane on its live slots."""
+    from biseqt_tpu_torch.ops import dp_ad
+
+    if not (torch.equal(got.score, want.score)
+            and torch.equal(got.end_i, want.end_i)
+            and torch.equal(got.end_j, want.end_j)):
+        return False
+    lo, hi = dp_ad.live_nibbles(dmin, w_eff, W)
+    bad = (((got.dirs ^ want.dirs) & 15).ne(0) & lo).sum() \
+        + (((got.dirs ^ want.dirs) >> 4).ne(0) & hi).sum()
+    return int(bad) == 0
+
+
+def wide_kernels(dev, card, rng, subst, W):
+    """Phase 18 (i) at one W: K1 and K4 against their twins (exactly),
+    timed beside their bounds.  Returns their records."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch.ops import dp_ad, dp_row
+    from biseqt_tpu_torch.ops.banded_dp import ModeFlags
+    from biseqt_tpu_torch.profiling import FP32_OPS_PER_S, bound_ms, cuda_ms
+
+    local = ModeFlags(local_start=True, local_end=True)
+    rec = {}
+    # -- K1: pair 0's band spans every lane, pairs 1 and 2 run along the
+    # lanes where blocks 0 and 1, and the last two, meet
+    blocks, lpt, held = dp_ad.cluster(W, device=dev)
+    Wb = W // blocks
+    n = WIDE_K1["length"]
+    cores = rng.integers(0, 4, (3, n)).astype(np.int8)
+    muts = [mutate(np, rng, c, 4, 0.10, 6, n // 10) for c in cores]
+    t0 = rng.integers(0, 4, max(n + 64, W - n + 64)).astype(np.int8)
+    off = (len(t0) - len(muts[0])) // 2
+    t0[off:off + len(muts[0])] = muts[0]
+    s_codes, s_lens = packed(np, list(cores))
+    t_codes, t_lens = packed(np, [t0, muts[1], muts[2]])
+    d0 = int(np.clip(-off - W // 2, -len(t0), n - W + 1))
+    dmin = np.array([d0, -Wb, -(blocks - 1) * Wb], np.int32)
+    w_eff = np.full(3, W - 1, np.int32)
+    on = [torch.as_tensor(x, device=dev)
+          for x in (s_codes, t_codes, s_lens, t_lens, dmin)]
+    kw = dict(W=W, subst=subst, go=GO, ge=GE, flags=local,
+              w_eff=torch.as_tensor(w_eff, device=dev), device=dev)
+    got = dp_ad.banded_dp_ad(*on, with_dirs=True, **kw)
+    score_only = dp_ad.banded_dp_ad(*on, **kw)
+    t_plain = time.perf_counter()
+    want = dp_ad.banded_dp_ad_reference(*on, with_dirs=True, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    if not (dp_ad_equal(torch, got, want, on[4], kw["w_eff"], W)
+            and torch.equal(score_only.score, want.score)):
+        fail("dp_ad at W %d differs from its plain twin (max |d score| %r)"
+             % (W, float((got.score - want.score).abs().max())))
+    # the run-time instance: global mode on the first flag_len letters of
+    # pairs 1 and 2
+    m = WIDE_K1["flag_len"]
+    gon = [on[0][1:, :m].contiguous(), on[1][1:, :m].contiguous(),
+           torch.full((2,), m, dtype=torch.int32, device=dev),
+           torch.full((2,), m, dtype=torch.int32, device=dev), on[4][1:]]
+    gkw = dict(kw, flags=ModeFlags(), w_eff=kw["w_eff"][1:])
+    ggot = dp_ad.banded_dp_ad(*gon, with_dirs=True, **gkw)
+    gwant = dp_ad.banded_dp_ad_reference(*gon, with_dirs=True, **gkw)
+    if not dp_ad_equal(torch, ggot, gwant, gon[4], gkw["w_eff"], W):
+        fail("dp_ad at W %d in global mode differs from its plain twin" % W)
+    ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*on, with_dirs=True, **kw), 2)
+    score_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*on, **kw), 2)
+    cells = band_cells(np, s_lens, t_lens, dmin + W - (W - 1), dmin + W - 1)
+    bound = bound_ms(nbytes(*on, kw["w_eff"], subst, *got),
+                     DP_AD_OPS_PER_CELL * cells, FP32_OPS_PER_S)
+    rec["dp_ad"] = dict(W=W, blocks=blocks, lanes_per_thread=lpt,
+                        clusters_held=held, ms=ms, score_ms=score_ms,
+                        plain_ms=plain_ms, max_abs_err=0.0, cells=cells,
+                        bound_ms=bound[0], bound_by=bound[1],
+                        share=bound[0] / ms, scores=got.score.tolist())
+    print("dp_ad at W %d (%s): a cluster of %d blocks (%d lanes a thread,"
+          " %d clusters at once), 3 pairs of %d x %s; == plain twin (local"
+          " with and without dirs, global on 2 x %d); kernel %.3f ms with"
+          " dirs, %.3f ms scores only, plain %.0f ms; %d band cells, bound"
+          " %.4f ms (%s), %.1f%% of it; scores %s"
+          % (W, card, blocks, lpt, held, n, t_lens.tolist(), m, ms,
+             score_ms, plain_ms, cells, bound[0], bound[1],
+             100 * bound[0] / ms, got.score.tolist()))
+    del got, want, score_only, ggot, gwant
+
+    # -- K4: pair 0 spans every lane, pairs 1 and 2 run along the lanes
+    # where the cluster's first two blocks, and its last two, meet
+    rows = WIDE_K4_ROWS
+    geo = dp_row.plan(3, W, True, sms=dp_row.sm_count(dev))
+    per_block = geo.threads(W) * geo.lpt
+    cores = rng.integers(0, 4, (3, rows)).astype(np.int8)
+    muts = [mutate(np, rng, c, 4, 0.10, 4, rows // 10) for c in cores]
+    t0 = rng.integers(0, 4, W - rows + 64).astype(np.int8)
+    off = (len(t0) - len(muts[0])) // 2
+    t0[off:off + len(muts[0])] = muts[0]
+    s_codes, s_lens = packed(np, list(cores))
+    t_codes, t_lens = packed(np, [t0, muts[1], muts[2]])
+    dmax = np.array([rows - 32, per_block, (geo.cluster - 1) * per_block],
+                    np.int32)
+    on = [torch.as_tensor(x, device=dev)
+          for x in (s_codes, t_codes, s_lens, t_lens, dmax - W + 1)]
+    kw = dict(W=W, subst=subst, go=GO, ge=GE, flags=local, device=dev)
+    got = dp_row.banded_dp_row(*on, with_dirs=True, **kw)
+    score_only = dp_row.banded_dp_row(*on, **kw)
+    t_plain = time.perf_counter()
+    want = dp_row.banded_dp_row_reference(*on, with_dirs=True, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    if not (all(torch.equal(a, b) for a, b in zip(got, want))
+            and torch.equal(score_only.score, want.score)):
+        fail("dp_row at W %d differs from its plain twin (max |d score| %r)"
+             % (W, float((got.score - want.score).abs().max())))
+    ms = cuda_ms(lambda: dp_row.banded_dp_row(*on, with_dirs=True, **kw), 2)
+    score_ms = cuda_ms(lambda: dp_row.banded_dp_row(*on, **kw), 2)
+    cells = band_cells(np, s_lens, t_lens, dmax - W + 1, dmax)
+    bound = bound_ms(nbytes(*on, subst, *got), DP_ROW_OPS_PER_CELL * cells,
+                     FP32_OPS_PER_S)
+    held = dp_row.clusters(W, device=dev)
+    rec["dp_row"] = dict(W=W, blocks=geo.cluster, lanes_per_thread=geo.lpt,
+                         threads=geo.threads(W), clusters_held=held, ms=ms,
+                         score_ms=score_ms, plain_ms=plain_ms,
+                         max_abs_err=0.0, cells=cells, bound_ms=bound[0],
+                         bound_by=bound[1], share=bound[0] / ms,
+                         scores=got.score.tolist())
+    print("dp_row at W %d (%s): a cluster of %d blocks of %d threads (%d"
+          " clusters at once), 3 pairs of %d rows x %s; == plain twin"
+          " (local with and without dirs, the whole plane); kernel %.3f ms"
+          " with dirs, %.3f ms scores only, plain %.0f ms; %d band cells,"
+          " bound %.4f ms (%s), %.1f%% of it; scores %s"
+          % (W, card, geo.cluster, geo.threads(W), held, rows,
+             t_lens.tolist(), ms, score_ms, plain_ms, cells, bound[0],
+             bound[1], 100 * bound[0] / ms, got.score.tolist()))
+    return rec
+
+
+class _TwinCalls:
+    """Counts the plain twins' calls while it is entered (the kernels'
+    wrappers must never reach them on a card)."""
+
+    def __enter__(self):
+        from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
+
+        self.calls = 0
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (dp_ad, "_sweep_plain"), (dp_row, "_sweep_plain"),
+            (walk, "_walk_plain"))]
+        for m, name, real in self.saved:
+            def counted(*a, _real=real, **k):
+                self.calls += 1
+                return _real(*a, **k)
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, real in self.saved:
+            setattr(m, name, real)
+        return False
+
+
+def wide_phase(dev, card, dna_pair):
+    """Phase 18: bands above 4096 lanes (see ``WIDE_WS``).  Returns the
+    kernels' records at each W and the paths' counts."""
+    import numpy as np
+    import torch
+
+    from biseqt_tpu_torch import pipeline, pw
+    from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
+    from biseqt_tpu_torch.sequence import Alphabet, Sequence
+
+    t_phase = time.perf_counter()
+    subst = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
+    rng = np.random.default_rng(WIDE_EXTENSION["seed"])
+    A4 = Alphabet("ACGT")
+    record = {"dp_ad": [], "dp_row": []}
+
+    # -- (i) the kernels against their twins at every W
+    for W in WIDE_WS:
+        rec = wide_kernels(dev, card, rng, subst, W)
+        for name in record:
+            record[name].append(rec[name])
+        torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t_phase
+
+    # -- (ii) a wide extension: the homologous block carries an insertion
+    cfg = WIDE_EXTENSION
+    i0, j0 = cfg["block_at"]
+    blk, ins = cfg["block"], cfg["insertion"]
+    s_arr = rng.integers(0, 4, cfg["size"]).astype(np.int8)
+    core = s_arr[i0:i0 + blk].copy()
+    hit = rng.random(blk) < cfg["sub"]
+    core[hit] = (core[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    t_arr = rng.integers(0, 4, cfg["size"]).astype(np.int8)
+    t_arr[j0:j0 + blk // 2] = core[:blk // 2]
+    t_arr[j0 + blk // 2 + ins:j0 + blk + ins] = core[blk // 2:]
+    S, T = Sequence(A4, s_arr), Sequence(A4, t_arr)
+    seg = {"segment": ((i0 - j0 - ins, i0 - j0),
+                       (i0 + j0, i0 + blk + j0 + blk + ins))}
+    _, _, cut, launches = pipeline.extension_plan([seg], len(S), len(T),
+                                                  True)
+    widths = sorted({launch[3] for launch in launches})
+    ekw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True,
+               device=dev)
+    dp_ad.LAUNCHES = walk.LAUNCHES = 0
+    with _TwinCalls() as twins:
+        t0 = time.perf_counter()
+        out = pipeline.extend_segments(S, T, [seg], **ekw)
+        ext_s = time.perf_counter() - t0
+    counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    if counts != {"dp_ad": len(launches), "walk": len(launches)} \
+            or twins.calls or min(widths) < 6144:
+        fail("wide extension: W %s, %d launches planned, %s counted, %d"
+             " twin calls" % (widths, len(launches), counts, twins.calls))
+    for row in out:
+        got, letters_ok = rescore(np, row["transcript"], s_arr, t_arr,
+                                  row["origin_start"], row["mutate_start"],
+                                  subst)
+        if got != row["score"] or not letters_ok:
+            fail("wide extension: a transcript rescores to %r, its score"
+                 " %r" % (got, row["score"]))
+    t0 = time.perf_counter()
+    rows_route = pipeline.extend_segments(S, T, [seg], use_pallas=False,
+                                          **ekw)
+    row_s = time.perf_counter() - t0
+    scores = [row["score"] for row in out]
+    if scores != [row["score"] for row in rows_route]:
+        fail("wide extension: K1's route scores %r, the row route %r"
+             % (scores, [row["score"] for row in rows_route]))
+    span = max(len(row["transcript"]) for row in out)
+    if span < blk:
+        fail("wide extension: the longest transcript has %d ops, the block"
+             " %d letters" % (span, blk))
+    print("wide extension (%s): 2 x %d bp, a %d bp block with a %d bp"
+          " insertion in T, segment %s: %d rows in %d launches at W %s,"
+          " launches %s, no twin call; %.3f s; scores %s == the row route's"
+          " (%.3f s); transcripts rescore exactly, the longest %d ops"
+          % (card, cfg["size"], blk, ins, seg["segment"], len(cut),
+             len(launches), widths, counts, ext_s, scores, row_s, span))
+    record["extension"] = dict(W=widths, launches=counts, seconds=ext_s,
+                               row_route_seconds=row_s, scores=scores)
+
+    # -- (iii) the Aligner on phase 6's pair, a 12001-diagonal band
+    core, mut = dna_pair
+    aligned = {}
+    for backend in ("pallas", "pallas_row", "native"):
+        n0 = (dp_ad.LAUNCHES, dp_row.LAUNCHES)
+        with _TwinCalls() as twins, pw.Aligner(
+                Sequence(A4, core), Sequence(A4, mut),
+                alnmode=pw.BANDED_MODE, alntype=pw.B_LOCAL,
+                diag_range=WIDE_ALIGNER_BAND, subst_scores=subst,
+                go_score=GO, ge_score=GE, backend=backend,
+                device=dev) as aln:
+            t0 = time.perf_counter()
+            score = aln.solve()
+            seconds = time.perf_counter() - t0
+        launched = (dp_ad.LAUNCHES - n0[0], dp_row.LAUNCHES - n0[1])
+        want = {"pallas": (1, 0), "pallas_row": (0, 1), "native": (0, 0)}
+        if launched != want[backend] or twins.calls:
+            fail("wide Aligner %s: launches (K1, K4) %s, %d twin calls"
+                 % (backend, launched, twins.calls))
+        aligned[backend] = (score, seconds)
+    if len({score for score, _ in aligned.values()}) != 1:
+        fail("wide Aligner: scores differ: %s" % aligned)
+    print("wide Aligner (%s): %d bp pair, diag_range %s (W %d): %s"
+          % (card, len(core), WIDE_ALIGNER_BAND,
+             pw._bucket(WIDE_ALIGNER_BAND[1] - WIDE_ALIGNER_BAND[0] + 1,
+                        mini=128),
+             ", ".join("%s %r (%.3f s)" % (b, sc, t)
+                       for b, (sc, t) in aligned.items())))
+    record["aligner"] = {b: {"score": sc, "seconds": t}
+                         for b, (sc, t) in aligned.items()}
+    phase_s = time.perf_counter() - t_phase
+    record["kernels_s"] = t_kernels
+    record["phase_s"] = phase_s
+    print("phase 18: %.1f s (the kernels against their twins %.1f s)"
+          % (phase_s, t_kernels))
+    return record
+
+
+def probes_phase(card):
+    """Phase 19: the four path probes of ``biseqt_tpu_torch.experiments``
+    at the JAX scripts' default sizes, each printing its JSON line."""
+    from biseqt_tpu_torch.experiments import (adkernel_probe,
+                                              pipeline_tx_probe,
+                                              txpath_probe, walk_probe)
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, module in (("pipeline_tx_probe", pipeline_tx_probe),
+                         ("walk_probe", walk_probe),
+                         ("adkernel_probe", adkernel_probe),
+                         ("txpath_probe", txpath_probe)):
+        t0 = time.perf_counter()
+        row = module.run()
+        row["seconds"] = time.perf_counter() - t0
+        print("probe %s (%s): %s" % (name, card, json.dumps(row)))
+        out[name] = row
+    if not (out["pipeline_tx_probe"]["walks_agree"] is True
+            and out["walk_probe"]["mismatches"] == 0
+            and out["adkernel_probe"]["parity"] == 0.0):
+        fail("a probe failed its check: %s" % json.dumps(out))
+    print("phase 19: %.1f s" % (time.perf_counter() - t_phase))
+    return out
+
+
+def wide_alone():
+    """Phases 18 and 19 alone, phase 18 (iii) on a pair made as phase 6
+    makes its DNA pair:
+
+        python3 -c 'import chip_smoke; chip_smoke.wide_alone()'
+    """
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "--id=0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    rng = np.random.default_rng(20261016)
+    core = rng.integers(0, 4, PAIR_LEN).astype(np.int8)
+    mut = mutate(np, rng, core, 4, 0.10, 40, 1000)
+    wide = wide_phase(dev, card, (core, mut))
+    probes_phase(card)
+    print(json.dumps({k: wide[k] for k in ("dp_ad", "dp_row")}))
+    print(card)
+
+
+def main():
+    import torch
 def main():
     import torch
 
@@ -2931,6 +3318,12 @@ def run(recall_reads, band_rows):
     # -- 17. the row route, use_pallas=False ------------------------------
     row_route_phase(dev, card, *smoke_batch)
 
+    # -- 18. bands above 4096 lanes, each a thread-block cluster ----------
+    wide = wide_phase(dev, card, dna_pair)
+
+    # -- 19. the four path probes at the JAX scripts' sizes -------------
+    probes = probes_phase(card)
+
     print(json.dumps({"kernels": [
         {"name": "dp_ad", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_ad.cu",
@@ -2952,7 +3345,11 @@ def run(recall_reads, band_rows):
          "two_tier_protein": {
              k: protein[k] for k in ("filter_ms", "rescore_ms",
                                      "full_only_ms", "bound_ms", "bound_by",
-                                     "twin_ms")}},
+                                     "twin_ms")},
+         "wide": wide["dp_ad"],
+         "wide_extension": wide["extension"],
+         "probes": {k: probes[k] for k in ("walk_probe", "adkernel_probe",
+                                           "txpath_probe")}},
         {"name": "walk", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/walk.cu",
          "replaces": "biseqt_tpu/ops/pallas_walk.py:512",
@@ -2972,7 +3369,8 @@ def run(recall_reads, band_rows):
          "replaces": "biseqt_tpu/ops/pallas_dp.py:54",
          "launches": row_launches, "max_abs_err": row_err,
          "ms": row_ms, "plain_ms": row_plain_ms, "bound_ms": row_bound,
-         "bound_by": row_bound_by, "library_ms": None},
+         "bound_by": row_bound_by, "library_ms": None,
+         "wide": wide["dp_row"], "wide_aligner": wide["aligner"]},
         # the plain version is PyTorch's transpose copy: plain = library
         {"name": "transpose_probe", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/transpose_probe.cu",

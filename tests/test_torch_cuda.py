@@ -44,6 +44,42 @@ FLAG_CASES = [
 GENERAL = np.array(
     [[2, -1, -2, -1], [-1, 2, -1, -2], [-2, -1, 2, -1], [-1, -2, -1, 2]],
     np.float32)
+# the bands above 4096 lanes, run as thread-block clusters
+CLUSTER_WS = [6144, 8192, 12288, 16384, 24576, 32768, 49152, 65536]
+
+
+def random_subst(rng, A):
+    """A random ``A x A`` float32 matrix: a positive diagonal, negative
+    mismatches of varied (fractional) values."""
+    m = -rng.integers(1, 9, (A, A)).astype(np.float32) / 2
+    np.fill_diagonal(m, rng.integers(2, 6, A).astype(np.float32))
+    return m
+
+
+def mk_edge_batch(rng, lanes, L=150, A=4):
+    """Homologous pairs, one for each lane of ``lanes``, ragged (T a
+    letter longer or shorter, with a 3-letter insertion halfway), 15%
+    substitutions: returns ``(ss, ts, s_lens, t_lens)``; each caller puts
+    pair b's main diagonal on ``lanes[b]``, so the alignment runs along
+    that lane and its gap chains cross it."""
+    B = len(lanes)
+    ss = rng.integers(0, A, (B, L)).astype(np.int8)
+    ts = ss.copy()
+    m = rng.random((B, L)) < 0.15
+    ts[m] = (ts[m] + 1 + rng.integers(0, A - 1, m.sum())) % A
+    ts = np.concatenate([ts[:, :L // 2], rng.integers(0, A, (B, 3)),
+                         ts[:, L // 2:]], axis=1).astype(np.int8)
+    s_lens = np.full(B, L, np.int32)
+    t_lens = (L + 3 - np.arange(B) % 3).astype(np.int32)
+    return ss, ts, s_lens, t_lens
+
+
+def cluster_edges(W, lanes_per_block):
+    """The lanes at which a cluster's blocks meet, and two lanes near the
+    band's edges (an alignment of :func:`mk_edge_batch` drifts three
+    lanes at its insertion: down in K1's lanes, up in K4's)."""
+    inner = list(range(lanes_per_block, W, lanes_per_block))
+    return [4, W - 5] + inner + [x - 1 for x in inner]
 
 
 def mk_batch(rng):
@@ -116,15 +152,18 @@ def _assert_results_equal(got, want):
         assert a.device == b.device and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("W", [128, 1026, 1536, 2052, 3072, 4096])
+@pytest.mark.parametrize("W", [128, 1026, 1536, 2052, 3072, 4096]
+                         + CLUSTER_WS)
 @pytest.mark.parametrize("flags", FLAG_CASES)
 def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
     """Every instance of the kernel: one, two and four lanes per thread,
     with an even and an odd thread count (W 1026 and 2052: a thread's
     lanes alternate parity), above 48 KB of shared memory at W 3072 and
-    4096; every flag set, the main path's local mode on its own
-    instances with and without directions, the others on the run-time
-    instance; unit and fractional general scores."""
+    4096, and the thread-block clusters above 4096 lanes (the whole
+    plane held, dead lanes included, so every block edge is); every
+    flag set, the main path's local mode on its own instances with and
+    without directions, the others on the run-time instance; unit and
+    fractional general scores."""
     args, w_eff = mk_batch(rng)
     args = [torch.as_tensor(x, device=card) for x in args]
     args[4] = args[4] + 128 - W          # keep the band around the diagonal
@@ -173,6 +212,89 @@ def test_dp_ad_kernel_odd_pairs_and_chunk_wrap(rng, card, flags, r_chunk):
                                                 **kw)
             _assert_results_equal(got, want)
         assert got.score.shape == (B,) and float(got.score.max()) > 100
+
+
+@pytest.mark.parametrize("W", CLUSTER_WS)
+@pytest.mark.parametrize("flags", FLAG_CASES[:3])
+def test_dp_ad_cluster_edges_match_plain(rng, card, flags, W):
+    """Above 4096 lanes: pairs whose alignments run along the lanes at
+    which the cluster's blocks meet (and along the band's two edges),
+    every lane live, so the neighbour exchange over distributed shared
+    memory carries live values; with and without directions."""
+    blocks, lpt, clusters = dp_ad.cluster(W, device=card)
+    assert blocks > 1 and lpt in (2, 4) and clusters > 0
+    assert W % blocks == 0 and (W // blocks) % (2 * lpt) == 0
+    lanes = cluster_edges(W, W // blocks)
+    ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes)
+    dmin = -np.array(lanes, np.int32)       # diagonal 0 on its lane
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    for subst, go, ge in ((UNIT, -2.0, -1.0), (GENERAL, -3.0, -0.5)):
+        kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
+                  r_chunk=16, device=card)
+        for with_dirs in (True, False):
+            n0 = dp_ad.LAUNCHES
+            got = dp_ad.banded_dp_ad(*args, with_dirs=with_dirs, **kw)
+            assert dp_ad.LAUNCHES == n0 + 1
+            _assert_results_equal(got, dp_ad.banded_dp_ad_reference(
+                *args, with_dirs=with_dirs, **kw))
+    if flags.get("local_start"):
+        assert float(got.score.min()) > 60
+
+
+def test_kernels_take_a_40_letter_alphabet(rng, card):
+    """K1 and K4 with a random 40 x 40 matrix (fractional mismatches),
+    at one block and as a cluster, against their twins."""
+    A = 40
+    subst = random_subst(rng, A)
+    for W in (256, 8192):
+        lanes = [W // 2 - 1, W // 2, 7, W - 9]
+        ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes, A=A)
+        for flags in FLAG_CASES[:3]:
+            for with_dirs in (True, False):
+                kw = dict(W=W, subst=subst, go=-3.0, ge=-0.5,
+                          flags=ModeFlags(**flags), with_dirs=with_dirs,
+                          device=card)
+                ad = [torch.as_tensor(x, device=card) for x in
+                      (ss, ts, s_lens, t_lens, -np.array(lanes, np.int32))]
+                _assert_results_equal(
+                    dp_ad.banded_dp_ad(*ad, r_chunk=16, **kw),
+                    dp_ad.banded_dp_ad_reference(*ad, r_chunk=16, **kw))
+                row = [torch.as_tensor(x, device=card) for x in
+                       (ss, ts, s_lens, t_lens,
+                        np.array(lanes, np.int32) - W + 1)]
+                got = dp_row.banded_dp_row(*row, **kw)
+                _assert_results_equal(
+                    got, dp_row.banded_dp_row_reference(*row, **kw))
+        assert float(got.score.max()) > 100
+
+
+def test_walk_kernel_over_a_cluster_plane(rng, card):
+    """The walk over K1's W 8192 plane (alignments along the lanes at
+    which the blocks meet) against its twin: trace bytes and cursors."""
+    W = 8192
+    blocks = dp_ad.cluster(W, device=card)[0]
+    lanes = cluster_edges(W, W // blocks)
+    ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes)
+    dmin = -np.array(lanes, np.int32)
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    res = dp_ad.banded_dp_ad(*args, W=W, subst=UNIT, go=-2.0, ge=-1.0,
+                             flags=ModeFlags(local_start=True,
+                                             local_end=True),
+                             with_dirs=True, device=card)
+    dminq = dp_ad.parity_adjusted_dmin(
+        args[4], torch.arange(len(lanes), device=card) % 2)
+    n0 = walk.LAUNCHES
+    got = walk.traceback_walk(res.dirs, dminq, res.end_i, res.end_j, W=W,
+                              device=card)
+    assert walk.LAUNCHES == n0 + 1
+    want = walk.traceback_walk_reference(res.dirs, dminq, res.end_i,
+                                         res.end_j, W=W, device=card)
+    _assert_results_equal(got, want)
+    moves = walk.trace_moves(got[0], len(lanes))
+    assert torch.equal(moves[0], res.end_i - got[1])
+    assert int(moves[0].min()) > 100
 
 
 @pytest.mark.parametrize("flags", FLAG_CASES[:3])
@@ -462,7 +584,7 @@ def test_extend_segments_bad_walk_raises_on_the_card(rng, card, monkeypatch):
 @pytest.mark.parametrize("W,B", [
     (128, 1), (128, 5), (128, 600), (256, 1), (256, 5), (256, 600),
     (384, 1), (512, 1), (512, 5), (512, 600), (1280, 5), (2176, 5),
-    (2560, 5), (4096, 1), (4096, 5)])
+    (2560, 5), (4096, 1), (4096, 5)] + [(W, 5) for W in CLUSTER_WS])
 @pytest.mark.parametrize("A", [4, 20])
 @pytest.mark.parametrize("flags", FLAG_CASES)
 def test_dp_row_kernel_matches_plain(rng, card, flags, A, W, B):
@@ -470,8 +592,8 @@ def test_dp_row_kernel_matches_plain(rng, card, flags, A, W, B):
     geometries the planner picks for the batch: a lone pair, a handful
     and 600 pairs (a warp per pair at W 128 and 256; from W 384 a block
     per pair of 4 or 8 lanes a thread, its last warp's lanes past W dead
-    at W 384 and 2176); every flag set of pw._FLAGS, a 4- and a 20-letter
-    alphabet."""
+    at W 384 and 2176; above 4096 a cluster of blocks per pair); every
+    flag set of pw._FLAGS, a 4- and a 20-letter alphabet."""
     args, w_eff = mk_row_batch_of(rng, B, A=A, W=W)
     args = [torch.as_tensor(x, device=card) for x in args]
     if A == 4:
@@ -521,6 +643,33 @@ def test_dp_row_kernel_ragged_batch(rng, card, W, B):
                 *args, **kw))
     assert dp_row.plan(B, W, sms=dp_row.sm_count(card)) == dp_row.Geometry(
         W // 32, True)
+
+
+@pytest.mark.parametrize("W", CLUSTER_WS)
+@pytest.mark.parametrize("flags", ROW_FLAGS[:3])
+def test_dp_row_cluster_edges_match_plain(rng, card, flags, W):
+    """Above 4096 lanes: pairs whose alignments run along the lanes at
+    which the cluster's blocks meet (and the band's two edges), every
+    lane live, so the E scan's carry, the up neighbour and the end
+    cell's reduction cross blocks; with and without directions."""
+    geo = dp_row.plan(5, W, sms=dp_row.sm_count(card))
+    assert geo.cluster > 1 and dp_row.clusters(W, device=card) > 0
+    lanes = cluster_edges(W, geo.threads(W) * geo.lpt)
+    ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes)
+    dmin = np.array(lanes, np.int32) - W + 1     # diagonal 0 on its lane
+    args = [torch.as_tensor(x, device=card)
+            for x in (ss, ts, s_lens, t_lens, dmin)]
+    for subst, go, ge in ((UNIT, -2.0, -1.0), (GENERAL, -3.0, -0.5)):
+        kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
+                  device=card)
+        for with_dirs in (False, True):
+            n0 = dp_row.LAUNCHES
+            got = dp_row.banded_dp_row(*args, with_dirs=with_dirs, **kw)
+            assert dp_row.LAUNCHES == n0 + 1
+            _assert_results_equal(got, dp_row.banded_dp_row_reference(
+                *args, with_dirs=with_dirs, **kw))
+    if flags.get("local_start"):
+        assert float(got.score.min()) > 60
 
 
 def test_dp_row_kernel_ragged_and_negative_dmax(rng, card):
@@ -596,7 +745,10 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     kw = dict(subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(), device=card)
     n0 = dp_ad.LAUNCHES
     with pytest.raises(ValueError, match="W must be even"):
-        dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0, W=4224, **kw)
+        dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0, W=4100, **kw)
+    with pytest.raises(ValueError, match="MAX_W = %d" % dp_ad.MAX_W):
+        dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0,
+                           W=dp_ad.MAX_W + 8192, **kw)
     with pytest.raises(ValueError, match="passed with device"):
         dp_ad.banded_dp_ad(x.cpu(), x, lens, lens, lens * 0, W=128, **kw)
     with pytest.raises(ValueError, match="dirs must be uint8"):
@@ -614,6 +766,9 @@ def test_kernel_wrappers_refuse_bad_launches(card):
         dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=200, **kw)
     with pytest.raises(ValueError, match="A = 20"):
         dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=128, A=20, **kw)
+    with pytest.raises(ValueError, match="MAX_W = %d" % dp_row.MAX_W):
+        dp_row.banded_dp_row(x, x, lens, lens, lens * 0,
+                             W=dp_row.MAX_W + 8192, **kw)
     assert dp_row.LAUNCHES == n0
     n0 = transpose_probe.LAUNCHES, i16_probe.LAUNCHES
     with pytest.raises(ValueError, match="passed with device"):

@@ -23,11 +23,13 @@ import torch
 
 from biseqt_tpu_torch import (blot, kmers, native, pipeline, protein, pw,
                               seeds, stochastics)
-from biseqt_tpu_torch.experiments import (fixed_ref_bench, genome_homology,
-                                          i16_probe, index_build_bench,
+from biseqt_tpu_torch.experiments import (adkernel_probe, fixed_ref_bench,
+                                          genome_homology, i16_probe,
+                                          index_build_bench,
                                           multiple_homology, overlap_recall,
-                                          protein_search, transpose_probe,
-                                          wordblot_recall)
+                                          pipeline_tx_probe, protein_search,
+                                          transpose_probe, txpath_probe,
+                                          walk_probe, wordblot_recall)
 from biseqt_tpu_torch.ops import (allvsall_sorted, banded_dp, blot_stats,
                                   dp_ad, dp_row, tables, walk)
 from biseqt_tpu_torch.parallel import (allvsall, mesh, sharded_dp,
@@ -295,6 +297,17 @@ _EXPERIMENT_CALLS = {
     "protein_search.run": (protein_search.run, lambda **kw:
                            protein_search.run(B=16, L=32, n_batches=2,
                                               **kw)),
+    # the four path probes
+    "pipeline_tx_probe.run": (pipeline_tx_probe.run, lambda **kw:
+                              pipeline_tx_probe.run(n=2, core_len=150,
+                                                    reps=1, **kw)),
+    "walk_probe.run": (walk_probe.run, lambda **kw:
+                       walk_probe.run(B=4, L=220, tB=2, tL=300, runs=1,
+                                      **kw)),
+    "adkernel_probe.run": (adkernel_probe.run, lambda **kw:
+                           adkernel_probe.run(B=2, L=300, runs=1, **kw)),
+    "txpath_probe.run": (txpath_probe.run, lambda **kw:
+                         txpath_probe.run(B=4, L=300, reps=1, **kw)),
 }
 ENTRY_POINTS.update(_EXPERIMENT_CALLS)
 ENTRY_POINTS.update({name: (getattr(stochastics, name), call)
@@ -425,6 +438,9 @@ def test_every_port_module_imports_without_jax():
                    "experiments.index_build_bench",
                    "experiments.genome_homology",
                    "experiments.overlap_recall",
-                   "experiments.protein_search"):
+                   "experiments.protein_search",
+                   "experiments.pipeline_tx_probe",
+                   "experiments.walk_probe", "experiments.adkernel_probe",
+                   "experiments.txpath_probe"):
         assert os.path.exists(os.path.join(
             PORT, module.replace(".", os.sep) + ".py"))

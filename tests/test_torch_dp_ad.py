@@ -21,7 +21,7 @@ from biseqt_tpu_torch.ops.dp_ad import (banded_dp_ad, live_nibbles,
                                         parity_adjusted_dmin)
 from biseqt_tpu_torch.sequence import from_reference
 from test_pallas_dp_ad import _rescore
-from test_torch_cuda import UNIT, mk_batch
+from test_torch_cuda import UNIT, mk_batch, mk_edge_batch, random_subst
 
 FLAG_CASES = [
     dict(local_start=True, local_end=True),
@@ -32,11 +32,12 @@ FLAG_CASES = [
 
 def run_both(args, w_eff, *, subst, go, ge, flags, W=128, with_dirs=True):
     """The same inputs through the JAX kernel (interpret mode, small
-    chunks) and the port on the CPU; returns ``(reference, port)``."""
+    chunks, told the alphabet's size) and the port on the CPU; returns
+    ``(reference, port)``."""
     ref = banded_dp_pallas_ad(
         *[jnp.asarray(x) for x in args], W=W, subst=subst, go=go, ge=ge,
         flags=RefFlags(**flags), w_eff=jnp.asarray(w_eff), interpret=True,
-        block_b=8, r_chunk=16, with_dirs=with_dirs)
+        block_b=8, r_chunk=16, with_dirs=with_dirs, A=len(subst))
     got = banded_dp_ad(
         *args, W=W, subst=subst, go=go, ge=ge,
         flags=from_reference(RefFlags(**flags)), w_eff=w_eff,
@@ -220,12 +221,53 @@ def test_dp_ad_band_of_4096_lanes_matches_lax(rng, flags):
                                       np.asarray(getattr(lax, name)))
 
 
-def test_dp_ad_refuses_bands_above_4096(rng):
-    """W above 4096, and W above 2048 that is not a multiple of 4, raise
-    a ValueError that names the limit."""
+def test_dp_ad_band_of_6144_lanes_matches_pallas(rng):
+    """W 6144, a band the card runs as a cluster of blocks, against the
+    JAX kernel (interpret mode): the batch's bands sit at the top of the
+    lanes and one pair's band spans every lane.  Scores, end cells and
+    the dirs plane's live nibbles are equal."""
+    args, w_eff = mk_batch(rng)
+    W = 6144
+    dmin = args[4] + 128 - W
+    dmin[2], w_eff[2] = -W // 2, W - 1
+    args = (*args[:4], dmin)
+    ref, got = run_both(args, w_eff, subst=UNIT, go=-2.0, ge=-1.0,
+                        flags=FLAG_CASES[0], W=W)
+    assert_same(ref, got, dmin, w_eff, W=W)
+    assert float(got.score.max()) > 60
+
+
+def test_dp_ad_40_letter_alphabet_matches_pallas(rng):
+    """A random 40 x 40 matrix (fractional mismatches) against the JAX
+    kernel (interpret mode; its packed-table path, ~40 s here, so one
+    mode): scores, end cells, live nibbles."""
+    flags = FLAG_CASES[0]
+    lanes = [60, 64, 10, 120]
+    ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes, L=90, A=40)
+    args = (ss, ts, s_lens, t_lens, -np.array(lanes, np.int32))
+    w_eff = np.full(len(lanes), 127, np.int32)
+    ref, got = run_both(args, w_eff, subst=random_subst(rng, 40), go=-3.0,
+                        ge=-0.5, flags=flags)
+    assert_same(ref, got, args[4], w_eff)
+    assert float(got.score.max()) > 100
+
+
+def test_dp_ad_widths_the_kernel_refuses(rng):
+    """Above 2048 lanes W must be a multiple of 4 and above 4096 of 128
+    (the twin takes every other even W); the kernel's wrapper refuses
+    bands above MAX_W before it loads anything, naming the cap and the
+    routes that take any W."""
     args, w_eff = mk_batch(rng)
     kw = dict(subst=UNIT, go=-2.0, ge=-1.0, flags=dp_ad.ModeFlags(),
               w_eff=w_eff, device="cpu")
-    for W in (4224, 3074):
-        with pytest.raises(ValueError, match="MAX_W = 4096"):
+    for W in (4100, 3074):
+        with pytest.raises(ValueError, match="W must be even"):
             banded_dp_ad(*args, W=W, **kw)
+    W = dp_ad.MAX_W + 8192
+    g = dp_ad._geometry(*args, w_eff, W=W, subst=UNIT, go=-2.0, ge=-1.0,
+                        r_chunk=16, device=torch.device("cpu"))
+    n0 = dp_ad.LAUNCHES
+    with pytest.raises(ValueError, match="MAX_W = 65536.*use_pallas=False"
+                       ".*band_sharded_ad_traceback"):
+        dp_ad._sweep_cuda(g, dp_ad.ModeFlags(), True)
+    assert dp_ad.LAUNCHES == n0

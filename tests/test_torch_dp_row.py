@@ -28,7 +28,8 @@ from biseqt_tpu_torch.ops import dp_row
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags, traceback_path
 from biseqt_tpu_torch.ops.dp_row import banded_dp_row
 
-from test_torch_cuda import ROW_FLAGS, UNIT, mk_row_batch
+from test_torch_cuda import (ROW_FLAGS, UNIT, mk_edge_batch, mk_row_batch,
+                             random_subst)
 
 A4 = Alphabet("ACGT")
 
@@ -79,6 +80,56 @@ def test_dp_row_matches_interpret_kernel(rng, with_dirs, flags):
                         device="cpu", **kw)
     assert_same(ref, got, dirs=with_dirs)
     assert got.dirs.shape == ((8, 100, 128) if with_dirs else (0,))
+
+
+def test_dp_row_band_of_6144_lanes_matches_interpret_kernel(rng):
+    """W 6144, a band the card runs as a cluster of blocks, against the
+    TPU kernel in interpret mode (8 pairs, one 128-row chunk): every
+    lane live on two pairs, dead lanes on the others; scores, end cells
+    and the whole direction plane equal."""
+    W = 6144
+    args, w_eff = mk_row_batch(rng, W=W, L=60)
+    args = [np.concatenate([a, a[:3]]) for a in args]
+    w_eff = np.concatenate([w_eff, w_eff[:3]])
+    kw = dict(W=W, subst=UNIT, go=-2.5, ge=-1.0, with_dirs=True)
+    flags = dict(local_start=True, local_end=True)
+    ref = banded_dp_pallas(*jx(*args), flags=RefFlags(**flags),
+                           w_eff=jnp.asarray(w_eff), block_b=8,
+                           interpret=True, **kw)
+    got = banded_dp_row(*args, flags=ModeFlags(**flags), w_eff=w_eff,
+                        device="cpu", **kw)
+    assert_same(ref, got)
+    assert float(got.score.max()) > 30
+
+
+@pytest.mark.parametrize("flags", [dict(), dict(local_end=True)])
+def test_dp_row_40_letter_alphabet_matches_lax(rng, flags):
+    """A random 40 x 40 matrix (fractional mismatches) against the JAX
+    lax engine (the TPU kernel in interpret mode unrolls a 1600-way
+    select a cell at A 40 and does not finish in minutes): scores, end
+    cells, the direction bytes and the transcripts equal."""
+    lanes = [60, 64, 10, 120]
+    ss, ts, s_lens, t_lens = mk_edge_batch(rng, lanes, L=90, A=40)
+    args = (ss, ts, s_lens, t_lens, np.array(lanes, np.int32) - 127)
+    ref, got = lax_and_row(args, flags=flags, with_dirs=True, W=128,
+                           subst=random_subst(rng, 40), go=-3.0, ge=-0.5)
+    assert_same(ref, got)
+    assert_walks_equal(ref, got, args, 128, flags)
+    assert float(got.score.max()) > 100
+
+
+def test_dp_row_widths_the_kernel_refuses(rng):
+    """The twin takes any multiple of 128; the kernel's wrapper refuses
+    bands above MAX_W before it loads anything, naming the cap and the
+    routes that take any W."""
+    args, w_eff = mk_row_batch(rng, L=100)
+    g = dp_row._prepare(*args, None, W=dp_row.MAX_W + 8192, subst=UNIT,
+                        go=-2.0, ge=-1.0, A=None, device=torch.device("cpu"))
+    n0 = dp_row.LAUNCHES
+    with pytest.raises(ValueError, match="MAX_W = 65536.*native.*"
+                       "banded_dp_band_sharded"):
+        dp_row._sweep_cuda(g, ModeFlags(), True)
+    assert dp_row.LAUNCHES == n0
 
 
 def lax_and_row(args, *, flags, w_eff=None, **kw):

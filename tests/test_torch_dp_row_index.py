@@ -53,6 +53,33 @@ def test_plan_owns_every_lane_once(W, B, with_dirs):
     assert lanes.max() < W + 32 * g.lpt
 
 
+@pytest.mark.parametrize("with_dirs", [False, True])
+@pytest.mark.parametrize("W", [4224, 5120, 6144, 8192, 12288, 16384, 24576,
+                               32768, 49152, 65536])
+def test_cluster_plan_owns_every_lane_once(W, with_dirs):
+    """Above 4096 lanes the planner takes a cluster of the fewest blocks
+    of at most 512 threads x 8 lanes (at most 8 blocks to W 32768, 16 to
+    W 65536), the pair's warps numbered across its blocks: every lane of
+    the pair is owned by exactly one thread of one block, the dead lanes
+    past W are fewer than a warp's worth a block, and a block's first
+    lane is a multiple of its width."""
+    g = dp_row.plan(1, W, with_dirs, sms=132)
+    g.check(W)
+    assert not g.warp_per_pair and g.lpt == dp_row.CLUSTER_LPT
+    assert 2 <= g.cluster <= (8 if W <= dp_row.PORTABLE_W else 16)
+    assert g.cluster == -(-W // (dp_row.CLUSTER_LPT * 512))
+    nt = g.threads(W)
+    assert nt <= dp_row.MAX_BLOCK_THREADS and nt % 32 == 0
+    lanes = np.array([(r * nt + t) * g.lpt + m for r in range(g.cluster)
+                      for t in range(nt) for m in range(g.lpt)])
+    assert len(set(lanes)) == len(lanes) and set(range(W)) <= set(lanes)
+    assert lanes.max() < W + g.cluster * 32 * g.lpt
+    with pytest.raises(ValueError):
+        dp_row.Geometry(g.lpt, False).check(W)     # one block is too few
+    with pytest.raises(ValueError):
+        dp_row.Geometry(4, False, g.cluster).check(W)
+
+
 @pytest.mark.parametrize("W,lpt,threads", [
     (128, 4, 32), (384, 8, 64), (2048, 4, 512), (2176, 8, 288),
     (4096, 8, 512)])
@@ -149,7 +176,7 @@ def grouped_scan(X, lpt, nw, A0):
 
 @pytest.mark.parametrize("W,lpt,nw", [
     (128, 4, 1), (256, 8, 1), (256, 4, 2), (384, 4, 3), (384, 8, 2),
-    (512, 4, 4), (512, 8, 2), (1280, 8, 5), (1152, 8, 5)])
+    (512, 4, 4), (512, 8, 2), (1280, 8, 5), (1152, 8, 5), (5120, 8, 20)])
 @pytest.mark.parametrize("flags", [dict(local_start=True, local_end=True),
                                    dict(), dict(free_start_edges=True,
                                                 free_end_edges=True)])

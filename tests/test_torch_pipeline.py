@@ -404,6 +404,55 @@ def test_extend_segments_band_above_2048_matches():
     _rescores(S, T, got)
 
 
+def test_extend_segments_band_above_4096_matches():
+    """A segment whose padded band buckets to W 6144, which the card
+    runs as a cluster of blocks: the port on the CPU gives the JAX
+    package's Pallas route (interpret mode) its score 133.0, transcript
+    and start cells exactly."""
+    codes = np.random.default_rng(3).integers(0, 4, 150).astype(np.int8)
+    mut = codes.copy()
+    mut[::17] = (mut[::17] + 1) % 4
+    S, T = Sequence(A4, codes), Sequence(A4, mut)
+    segments = [{"segment": ((-2100, 2100), (100, 200))}]
+    cut = pipeline.cut_segment(segments[0], len(S), len(T))
+    assert pipeline.plan_launches([cut], True)[0][3] == 6144
+    kw = dict(subst=UNIT, go_score=-2.0, ge_score=-1.0,
+              with_transcripts=True, pad_a=16, _r_chunk=16)
+    want = ref_pipeline.extend_segments(S, T, segments, use_pallas=True,
+                                        _interpret=True, **kw)
+    got = pipeline.extend_segments(from_reference(S), from_reference(T),
+                                   segments, device="cpu", **kw)
+    assert got == want
+    assert got[0]["score"] == 133.0 and got[0]["transcript"]
+    for seg in got:
+        aln = Alignment(S, T, seg["transcript"],
+                        origin_start=seg["origin_start"],
+                        mutate_start=seg["mutate_start"])
+        assert aln.calculate_score(UNIT, -2.0, -1.0) == seg["score"]
+
+
+def test_window_split_bounds_a_wide_band():
+    """A band of 30001 diagonals (W 32768: a cluster of 8 blocks a plane
+    row on the card) over 200,001 antidiagonals: the split sizes its
+    a-windows by that W, ``max(2 * budget // W, 8 * pad_a)`` of them a
+    window and its overlap, and every launch of the plan fits the
+    launch budget."""
+    seg = {"segment": ((-15000, 15000), (0, 200_000))}
+    rows, src, _, launches = pipeline.extension_plan([seg], 120_000,
+                                                     120_000, True)
+    assert {launch[3] for launch in launches} == {32768}
+    max_a = max(2 * pipeline.DIRS_BUDGET // 32768, 8 * pipeline.PAD_A)
+    spans = [row["segment"][1] for row in rows]
+    assert len(rows) == -(-200_001 // max_a) and src == [0] * len(rows)
+    assert spans[0][0] == 0 and spans[-1][1] == 200_000
+    for (lo, hi), (lo2, _) in zip(spans, spans[1:]):
+        assert hi - lo <= max_a + 2 * pipeline.PAD_A
+        assert lo2 <= hi - 2 * pipeline.PAD_A
+    for idxs, LS, LT, W in launches:
+        assert pipeline.launch_bytes(len(idxs), LS, LT, W, True) \
+            <= pipeline.LAUNCH_BYTES
+
+
 def _discovery_pair(seed, n_cores=2, core=250):
     """Planted homologous cores between random spacers (the reference's
     mutation process), for discovery and extension in one call."""

@@ -89,6 +89,24 @@ def test_kernel_backends_match_reference_lax(rng, backend, alntype):
             assert got == want
 
 
+@pytest.mark.parametrize("alntype", pw.BANDED_TYPES)
+@pytest.mark.parametrize("backend", ["pallas_row", "pallas"])
+def test_kernel_backends_take_bands_above_4096_lanes(rng, backend, alntype):
+    """``diag_range=(-2100, 2100)``: 4201 diagonals, which both kernel
+    backends round up to W 5120 (a cluster of blocks on the card).  The
+    plain twins give the JAX lax backend's scores and rescore exactly;
+    the row kernel also gives its transcripts."""
+    kw = dict(alnmode=pw.BANDED_MODE, alntype=alntype, go_score=-2.5,
+              ge_score=-1.0, diag_range=(-2100, 2100))
+    assert pw._bucket(4201 + (backend == "pallas"), mini=128) == 5120
+    for S, T in pairs(rng):
+        got = align(pw, S, T, backend=backend, **kw)
+        want = align(ref_pw, S, T, backend="lax", **kw)
+        assert got[0] == want[0] and got[3] == got[0]
+        if backend == "pallas_row":
+            assert got == want
+
+
 def test_pallas_row_protein_defect_not_inherited(rng):
     """The JAX Aligner's row-kernel route never passes the alphabet size
     to its kernel, whose default is 4, so a 20-letter matrix raises
