@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 
+from .profiling import Phase, count
+
 __all__ = ["load", "check", "build_log", "so_path", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -64,31 +66,34 @@ def _paths(name: str):
 def load(name: str, declare) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed;
     ``declare(lib)`` sets the ctypes signatures of its entry points
-    once, when it is first loaded."""
+    once, when it is first loaded.  That first load in the process is
+    the span ``build.load``, and each nvcc run counts as ``builds``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     src, so, log = _paths(name)
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )
-            with open(log, "w") as f:
-                f.write(proc.stdout)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed on %s:\n%s"
-                                   % (src, proc.stdout[-4000:]))
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(so)
+    with Phase("build.load"):
+        if not os.path.exists(so):
+            count("builds")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                )
+                with open(log, "w") as f:
+                    f.write(proc.stdout)
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed on %s:\n%s"
+                                       % (src, proc.stdout[-4000:]))
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(so)
     lib.bst_cuda_error_string.restype = ctypes.c_char_p
     lib.bst_cuda_error_string.argtypes = [ctypes.c_int]
     declare(lib)

@@ -41,7 +41,7 @@ import torch
 from .kmers import as_kmer_keys_np
 from .ops import blot_stats, tables
 from .ops.banded_dp import resolve_device
-from .profiling import Phase
+from .profiling import Phase, host_copy
 from .seeds import SeedIndex, SeedIndexMultiple, kmer_table_np
 from .sequence import Sequence
 
@@ -74,7 +74,7 @@ def _batched_stats(ns, areas, seglens, wordlen: int, alphabet_len: int,
                                                   device=device)
         s0, s1 = blot_stats.h0_h1_scores(ns, areas, seglens, p, wordlen,
                                          alphabet_len, device=device)
-        return tuple(torch.stack([p, s0, s1]).cpu().numpy())
+        return tuple(host_copy(torch.stack([p, s0, s1])).numpy())
 
 
 def _score_components(cand, wordlen: int, alphabet_len: int, device):
@@ -168,7 +168,8 @@ class WordBlot:
         cached = getattr(self, "_grids_cache", None)
         if cached is not None and cached[0] == K:
             return cached[1]
-        out = self._grids_impl(K)
+        with Phase("blot.grid"):
+            out = self._grids_impl(K)
         self._grids_cache = (K, out)
         return out
 
@@ -183,7 +184,8 @@ class WordBlot:
         grid = blot_stats.grid_counts(d_ // dcell, a // acell, n_d, n_a,
                                       device=self.device)
         neigh = blot_stats.box_sum3(grid, device=self.device)
-        return (grid.cpu().numpy(), neigh.cpu().numpy(), dcell, acell, r)
+        return (host_copy(grid).numpy(), host_copy(neigh).numpy(), dcell,
+                acell, r)
 
     def score_seeds(self, K: int) -> List[Dict]:
         """Per-seed local match-probability estimates: each seed's
@@ -196,9 +198,9 @@ class WordBlot:
         # alignment columns, similar_segments' calibration
         seg_cols = min(3 * acell / 2.0, float(min(len(self.S), len(self.T))))
         ns = neigh[d_ // dcell, a // acell]
-        ps = blot_stats.estimate_match_probability(
+        ps = host_copy(blot_stats.estimate_match_probability(
             ns.astype(np.float32), seg_cols, self.wordlen,
-            device=self.device).cpu().numpy()
+            device=self.device)).numpy()
         ii = (a + d_ - lt) // 2
         jj = (a - (d_ - lt)) // 2
         return [
@@ -237,7 +239,8 @@ class WordBlot:
         n_d = (len(self.S) + len(self.T)) // dcell + 2
         n_a = (len(self.S) + len(self.T)) // acell + 2
         if n_d * n_a > self.MAX_GRID_CELLS:
-            return self._collect_sparse(K_min, dcell, acell)
+            with Phase("blot.components"):
+                return self._collect_sparse(K_min, dcell, acell)
         return self._collect_components(K_min, p_min)
 
     def _similar_segments_inner(self, K_min, p_min, at_least_one):
@@ -253,34 +256,35 @@ class WordBlot:
         """Candidate boxes [(d_lo, d_hi, a_lo, a_hi, n, seglen)] of the
         dense assembler: connected components of hot grid cells."""
         grid, neigh, dcell, acell, r = self._grids(K_min)
-        lt = len(self.T)
-        # a cell is "hot" if its 3x3 neighbourhood (≈ a (3r, 6K) window,
-        # ~3K alignment columns per band) has enough seeds to suggest
-        # match probability >= p_min over K_min columns
-        win_cols = 3 * acell / 2.0
-        thresh = max(1.0, win_cols * (p_min ** self.wordlen) * 0.5)
-        hot = neigh >= thresh
-        if not hot.any():
-            return []
-        labels, n_comp = ndimage.label(hot, structure=np.ones((3, 3)))
-        # bounding boxes in one pass (linear in the grid)
-        boxes = ndimage.find_objects(labels)
-        cand = []
-        for sl_d, sl_a in boxes:
-            d_lo = int(sl_d.start) * dcell
-            d_hi = int(sl_d.stop) * dcell - 1
-            a_lo = int(sl_a.start) * acell
-            a_hi = int(sl_a.stop) * acell - 1
-            n = self.seed_index.seed_count(
-                d_band=(d_lo - lt, d_hi - lt), a_band=(a_lo, a_hi))
-            # clamp to the real maximum alignment length: the quantized
-            # a-range can exceed min(|S|, |T|)
-            seglen = min((a_hi - a_lo + 1) / 2.0,
-                         float(min(len(self.S), len(self.T))))
-            if seglen < K_min:
-                continue
-            cand.append((d_lo, d_hi, a_lo, a_hi, n, seglen))
-        return cand
+        with Phase("blot.components"):
+            lt = len(self.T)
+            # a cell is "hot" if its 3x3 neighbourhood (≈ a (3r, 6K) window,
+            # ~3K alignment columns per band) has enough seeds to suggest
+            # match probability >= p_min over K_min columns
+            win_cols = 3 * acell / 2.0
+            thresh = max(1.0, win_cols * (p_min ** self.wordlen) * 0.5)
+            hot = neigh >= thresh
+            if not hot.any():
+                return []
+            labels, n_comp = ndimage.label(hot, structure=np.ones((3, 3)))
+            # bounding boxes in one pass (linear in the grid)
+            boxes = ndimage.find_objects(labels)
+            cand = []
+            for sl_d, sl_a in boxes:
+                d_lo = int(sl_d.start) * dcell
+                d_hi = int(sl_d.stop) * dcell - 1
+                a_lo = int(sl_a.start) * acell
+                a_hi = int(sl_a.stop) * acell - 1
+                n = self.seed_index.seed_count(
+                    d_band=(d_lo - lt, d_hi - lt), a_band=(a_lo, a_hi))
+                # clamp to the real maximum alignment length: the quantized
+                # a-range can exceed min(|S|, |T|)
+                seglen = min((a_hi - a_lo + 1) / 2.0,
+                             float(min(len(self.S), len(self.T))))
+                if seglen < K_min:
+                    continue
+                cand.append((d_lo, d_hi, a_lo, a_hi, n, seglen))
+            return cand
 
     def _emit_components(self, cand, p_min):
         """Score candidate boxes in one pass and yield the surviving
@@ -432,7 +436,7 @@ class WordBlotOverlap(WordBlot):
         s0, s1 = blot_stats.h0_h1_scores(
             sums, area, seglen, np.maximum(p_hat, 1e-3), self.wordlen,
             len(self.S.alphabet), device=self.device)
-        s0, s1 = s0.cpu().numpy(), s1.cpu().numpy()
+        s0, s1 = host_copy(s0).numpy(), host_copy(s1).numpy()
         ok = (K_d >= 2 * self.wordlen) & (s0 >= min_score)
         if not ok.any():
             return None
@@ -459,11 +463,11 @@ class WordBlotOverlap(WordBlot):
         # sliding band sums with the max radius window; each band is then
         # scored with that window's own area
         r_max = int(r_d.max())
-        sums = blot_stats.sliding_band_sums(
-            counts, r_max, device=self.device).cpu().numpy().astype(float)
-        p_hat = blot_stats.estimate_match_probability(
+        sums = host_copy(blot_stats.sliding_band_sums(
+            counts, r_max, device=self.device)).numpy().astype(float)
+        p_hat = host_copy(blot_stats.estimate_match_probability(
             sums, np.maximum(K_d, 1).astype(float), self.wordlen,
-            device=self.device).cpu().numpy()
+            device=self.device)).numpy()
         return diags, K_d, r_d, r_max, sums, p_hat
 
     def overlap_profile(self):

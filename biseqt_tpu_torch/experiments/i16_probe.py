@@ -35,13 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.banded_dp import resolve_device
-from ..profiling import INT32_OPS_PER_S, bound_ms, cuda_ms
+from ..profiling import INT32_OPS_PER_S, bound_ms, count, cuda_ms
 
 __all__ = ["i16_op", "i16_op_reference", "i16_bound_ms", "probe_input",
-           "run", "main", "OPS", "LANES", "LAUNCHES"]
-
-# CUDA kernel launches made by i16_op (never by the plain versions)
-LAUNCHES = 0
+           "run", "main", "OPS", "LANES"]
 
 LANES = 128
 REPS = 20                 # timed runs of each op
@@ -99,7 +96,6 @@ def _op_code(name: str) -> int:
 
 
 def _i16_cuda(op: int, x: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     from .. import _build
 
     if x.data_ptr() % 16:
@@ -113,7 +109,7 @@ def _i16_cuda(op: int, x: torch.Tensor) -> torch.Tensor:
         ptr(x), ptr(out), x.shape[0], op, x.device.index,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, rc, "i16 op launch")
-    LAUNCHES += 1
+    count("launches.i16_probe")
     return out
 
 

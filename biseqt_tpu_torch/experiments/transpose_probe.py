@@ -31,13 +31,10 @@ import numpy as np
 import torch
 
 from ..ops.banded_dp import resolve_device
-from ..profiling import bound_ms, cuda_ms
+from ..profiling import bound_ms, count, cuda_ms
 
 __all__ = ["transpose_minor", "transpose_minor_reference",
-           "transpose_bound_ms", "run", "main", "LAUNCHES", "PLANE", "SUB"]
-
-# CUDA kernel launches made by transpose_minor (never by the plain version)
-LAUNCHES = 0
+           "transpose_bound_ms", "run", "main", "PLANE", "SUB"]
 
 PLANE = (1288, 512, 128)   # the probe's plane: [Rp, B2, W] u8, 84.4 MB
 SUB = (256, 128, 128)      # the plane rows and columns its kernel ran on
@@ -64,7 +61,6 @@ def _transpose_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def _transpose_cuda(x: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     from .. import _build
 
     R, B, W = x.shape
@@ -80,7 +76,7 @@ def _transpose_cuda(x: torch.Tensor) -> torch.Tensor:
         ptr(x), ptr(out), R, B, W, int(vec), x.device.index,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, rc, "transpose launch")
-    LAUNCHES += 1
+    count("launches.transpose_probe")
     return out
 
 

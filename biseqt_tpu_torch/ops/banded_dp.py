@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..profiling import count, host_copy
 from .steps import put, run_steps
 
 NEG = -1e30  # finite -inf; float32(NEG) is what the kernels carry
@@ -92,7 +93,9 @@ def on_device(x, dtype, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         # through pinned memory, not waited for: a copy from pageable
         # memory would first wait for all the work queued on the card
-        return torch.from_numpy(np.array(x, order="C")).pin_memory().to(
+        x = np.array(x, order="C")
+        count("bytes_to_card", x.nbytes)
+        return torch.from_numpy(x).pin_memory().to(
             device, non_blocking=True).to(dtype)
     if not x.flags.writeable:     # a Sequence's frozen codes
         x = x.copy()
@@ -100,7 +103,8 @@ def on_device(x, dtype, device: torch.device) -> torch.Tensor:
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return (host_copy(x).numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
 
 
 # ---------------------------------------------------------------------------

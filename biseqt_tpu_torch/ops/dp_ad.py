@@ -42,14 +42,12 @@ import ctypes
 import numpy as np
 import torch
 
+from ..profiling import Phase, count
 from .banded_dp import NEG, DPResult, ModeFlags, on_device, resolve_device
 from .steps import put, run_steps, take
 
 __all__ = ["banded_dp_ad", "banded_dp_ad_reference", "parity_adjusted_dmin",
-           "live_nibbles", "cluster", "LAUNCHES", "MAX_W", "MAX_A"]
-
-# CUDA kernel launches made by banded_dp_ad (never by the plain twin)
-LAUNCHES = 0
+           "live_nibbles", "cluster", "MAX_W", "MAX_A"]
 
 PAD_S = -1        # s pad code (never equals a t code)
 PAD_T = -2
@@ -366,7 +364,6 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
 def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
     """Launch ``csrc/dp_ad.cu`` on the current stream; same outputs as
     :func:`_sweep_plain`."""
-    global LAUNCHES
     from .. import _build
     from ..native import _flags_of
 
@@ -406,7 +403,7 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool):
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(lib, rc, "dp_ad launch")
-    LAUNCHES += 1
+    count("launches.dp_ad")
     return Ma, Mb, Aa, Ab, dirs
 
 
@@ -482,8 +479,10 @@ def _finish(g, Ma, Mb, Aa, Ab, dirs, flags: ModeFlags, with_dirs: bool):
 
 def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
          flags, w_eff, with_dirs, r_chunk, device):
-    g = _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, W=W,
-                  subst=subst, go=go, ge=ge, r_chunk=r_chunk, device=device)
+    with Phase("dp_ad.inputs"):
+        g = _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, W=W,
+                      subst=subst, go=go, ge=ge, r_chunk=r_chunk,
+                      device=device)
     if g["B"] == 0:
         raise ValueError("empty batch")
     return _finish(g, *engine(g, flags, with_dirs), flags, with_dirs)

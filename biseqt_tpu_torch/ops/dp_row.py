@@ -44,14 +44,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..profiling import count
 from .banded_dp import (NEG, DPResult, ModeFlags, on_device, resolve_device,
                         shift_lanes)
 
 __all__ = ["banded_dp_row", "banded_dp_row_reference", "plan", "sm_count",
-           "clusters", "Geometry", "LAUNCHES", "MAX_W", "MAX_A"]
-
-# CUDA kernel launches made by banded_dp_row (never by the plain twin)
-LAUNCHES = 0
+           "clusters", "Geometry", "MAX_W", "MAX_A"]
 
 # the widest band the kernel takes: above 4096 lanes a pair is a
 # thread-block cluster of at most 16 blocks of 512 threads x 8 lanes;
@@ -326,7 +324,6 @@ def _sweep_plain(g, flags: ModeFlags, with_dirs: bool):
 def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
     """Launch ``csrc/dp_row.cu`` on the current stream in ``geometry``
     (default :func:`plan`); same outputs as :func:`_sweep_plain`."""
-    global LAUNCHES
     from .. import _build
     from ..native import _flags_of
 
@@ -363,7 +360,7 @@ def _sweep_cuda(g, flags: ModeFlags, with_dirs: bool, geometry=None):
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(lib, rc, "dp_row launch")
-    LAUNCHES += 1
+    count("launches.dp_row")
     return score, ei, ek, dirs
 
 

@@ -31,17 +31,14 @@ import ctypes
 
 import torch
 
+from ..profiling import count
 from .banded_dp import on_device, resolve_device
 from .steps import add_at, run_steps, take
 
 __all__ = ["traceback_walk", "traceback_walk_reference", "trace_moves",
-           "step_walk", "LAUNCHES", "DEPTH", "OP_NONE", "OP_DIAG", "OP_INS",
-           "OP_DEL"]
+           "step_walk", "DEPTH", "OP_NONE", "OP_DIAG", "OP_INS", "OP_DEL"]
 
 OP_NONE, OP_DIAG, OP_INS, OP_DEL = 0, 1, 2, 3
-
-# CUDA kernel launches made by traceback_walk (never by the plain twin)
-LAUNCHES = 0
 
 # antidiagonals of the plane window the kernel copies to shared memory
 # at a time: the constant D of csrc/walk.cu
@@ -142,7 +139,6 @@ def _walk_plain(dirs, dq, ei, ej, Rp, B2, W):
 
 
 def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
-    global LAUNCHES
     from .. import _build
 
     if W % 16 or dirs.data_ptr() % 16:
@@ -162,7 +158,7 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
         ptr(fi), ptr(fj), dev.index,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, rc, "walk launch")
-    LAUNCHES += 1
+    count("launches.walk")
     return trace, fi, fj
 
 

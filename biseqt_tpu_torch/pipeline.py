@@ -46,7 +46,7 @@ from .blot import WordBlot
 from .ops.banded_dp import ModeFlags, banded_dp, resolve_device
 from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
-from .profiling import Phase
+from .profiling import Phase, count
 
 __all__ = ["extend_segments", "discover_and_extend", "cut_segment",
            "extension_plan", "plan_launches", "launch_inputs", "PAD_RADIUS",
@@ -272,6 +272,7 @@ def _to_host(x, device):
     completed), ``x`` itself on the CPU."""
     if device.type != "cuda":
         return x
+    count("bytes_to_host.pinned", x.numel() * x.element_size())
     buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     return buf.copy_(x, non_blocking=True)
 
@@ -328,8 +329,9 @@ def _finish(launch, flags, with_transcripts):
     """Wait for a dispatched launch and return its scores and, with
     transcripts, its ``(ops, start_i, start_j)`` compacted or walked by
     the C++ tier; a walk that does not lead from its end cell raises."""
-    if launch.event is not None:
-        launch.event.synchronize()
+    with Phase("pipeline.wait"):
+        if launch.event is not None:
+            launch.event.synchronize()
     x, n = launch.x, len(launch.idxs)
     score = launch.host[0].numpy()
     if not with_transcripts:
@@ -414,9 +416,11 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                 "(building biseqt_tpu_torch/csrc/pwnative.cpp failed — is a "
                 "C++ toolchain installed?); run score-only "
                 "(with_transcripts=False)")
-    segments, src_idx, cut, launches = extension_plan(
-        segments, len(S), len(T), with_transcripts, pad_radius=pad_radius,
-        pad_a=pad_a, dirs_budget=_dirs_budget, row=row)
+    with Phase("pipeline.plan"):
+        segments, src_idx, cut, launches = extension_plan(
+            segments, len(S), len(T), with_transcripts,
+            pad_radius=pad_radius, pad_a=pad_a, dirs_budget=_dirs_budget,
+            row=row)
     route = "row" if row else "walk" if device_walk else "plane"
     B = len(cut)
     # local mode: the alignment starts and ends wherever the homology does
@@ -457,8 +461,9 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
             # the bytes in flight past the budget (0: one at a time)
             while pending and inflight + est > PIPELINE_BYTES:
                 finish_oldest()
-            x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
-                              with_transcripts, row=row)
+            with Phase("pipeline.gather"):
+                x = launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
+                                  with_transcripts, row=row)
             with Phase("pipeline.launch"):
                 pending.append((_dispatch(idxs, x, W, dp_kw,
                                           with_transcripts, route, device),
@@ -467,18 +472,19 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
         while pending:
             finish_oldest()
 
-    out = []
-    for b, seg in enumerate(segments):
-        seg = dict(seg)
-        seg["source_index"] = src_idx[b]
-        seg["score"] = float(scores[b])
-        seg["band_cells"] = int(
-            (cut[b][5] - cut[b][4] + 1) * (cut[b][1] - cut[b][0]))
-        if with_transcripts:
-            seg["transcript"] = ops[b]
-            seg["origin_start"] = int(cut[b][0] + si_all[b])
-            seg["mutate_start"] = int(cut[b][2] + sj_all[b])
-        out.append(seg)
+    with Phase("pipeline.rows"):
+        out = []
+        for b, seg in enumerate(segments):
+            seg = dict(seg)
+            seg["source_index"] = src_idx[b]
+            seg["score"] = float(scores[b])
+            seg["band_cells"] = int(
+                (cut[b][5] - cut[b][4] + 1) * (cut[b][1] - cut[b][0]))
+            if with_transcripts:
+                seg["transcript"] = ops[b]
+                seg["origin_start"] = int(cut[b][0] + si_all[b])
+                seg["mutate_start"] = int(cut[b][2] + sj_all[b])
+            out.append(seg)
     return out
 
 

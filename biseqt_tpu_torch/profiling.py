@@ -1,11 +1,20 @@
-"""Profiling / observability: phase timers and GCUPS counters.
+"""Profiling / observability: phase timers, event counts and GCUPS.
 
 The port's counterpart of :mod:`biseqt_tpu.profiling`.  ``Phase``
 timers aggregate into a process-wide registry that :func:`report`
 prints as JSON lines.  CUDA launches return before the card finishes,
-so honest wall-clock needs a synchronisation inside the timed region:
-``Phase`` takes an optional ``result`` and synchronises the devices of
-the CUDA tensors in it before the timer stops.
+so a span around enqueued device work times the enqueue; honest
+wall-clock needs a synchronisation inside the timed region: ``Phase``
+takes an optional ``result`` and synchronises the devices of the CUDA
+tensors in it before the timer stops.  While a ``torch.profiler`` is
+recording, each span is also a ``record_function`` range of its name,
+so the trace places device work and idle time in the program's spans.
+
+:func:`count` adds to a named counter (each kernel's launches, bytes
+copied between the host and the card, nvcc builds) under the innermost
+span open on the calling thread; :func:`counts` reads them by span,
+:func:`total` sums one over the spans, and :func:`report` prints them
+beside each span.
 """
 
 from __future__ import annotations
@@ -15,16 +24,34 @@ import json
 import os
 import re
 import subprocess
+import threading
 import time
 from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["Phase", "counters", "report", "gcups", "cuda_ms", "bound_ms",
-           "materialize", "sass_step_loop", "cuobjdump_sass", "trace",
+__all__ = ["Phase", "counters", "count", "counts", "total", "host_copy",
+           "report", "gcups", "cuda_ms", "bound_ms", "materialize",
+           "sass_step_loop", "cuobjdump_sass", "trace", "NO_SPAN",
            "HBM_BYTES_PER_S", "FP32_OPS_PER_S", "INT32_OPS_PER_S"]
 
 _REGISTRY = defaultdict(lambda: {"calls": 0, "seconds": 0.0, "cells": 0})
+# span name -> counter name -> total, apart from the spans' timings
+_COUNTS = defaultdict(lambda: defaultdict(int))
+# the names of the spans open on each thread, innermost last; the
+# registries take spans and counts from several threads (parallel builds)
+_OPEN = threading.local()
+_LOCK = threading.Lock()
+NO_SPAN = "(no span)"
+
+
+def _open_spans() -> list:
+    try:
+        return _OPEN.names
+    except AttributeError:
+        _OPEN.names = []
+        return _OPEN.names
 
 
 class Phase:
@@ -34,7 +61,10 @@ class Phase:
     GCUPS per phase.  For honest device timing, either synchronise
     inside the block yourself or hand the phase its results
     (``ph.result = out``): the devices they live on are then
-    synchronised before the timer stops.
+    synchronised before the timer stops.  While a torch profiler
+    records, the block is also a ``record_function`` range named
+    ``name``; otherwise it costs a flag check and a push and pop of the
+    name on this thread's stack of open spans.
     """
 
     def __init__(self, name: str, cells: int = 0, result=None):
@@ -43,18 +73,59 @@ class Phase:
         self.result = result
 
     def __enter__(self):
+        self._spans = _open_spans()
+        self._spans.append(self.name)
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        if self.result is not None and exc[0] is None:
-            materialize(self.result)
-        dt = time.perf_counter() - self.t0
-        entry = _REGISTRY[self.name]
-        entry["calls"] += 1
-        entry["seconds"] += dt
-        entry["cells"] += self.cells
+        try:
+            if self.result is not None and exc[0] is None:
+                materialize(self.result)
+            dt = time.perf_counter() - self.t0
+            with _LOCK:
+                entry = _REGISTRY[self.name]
+                entry["calls"] += 1
+                entry["seconds"] += dt
+                entry["cells"] += self.cells
+        finally:
+            if self._range is not None:
+                self._range.__exit__(None, None, None)
+            self._spans.pop()
         return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` under the innermost span open on
+    this thread (:data:`NO_SPAN` when none is)."""
+    spans = _open_spans()
+    with _LOCK:
+        _COUNTS[spans[-1] if spans else NO_SPAN][name] += int(n)
+
+
+def counts() -> dict:
+    """``{span: {counter: total}}`` of every :func:`count` so far."""
+    with _LOCK:
+        return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def total(name: str) -> int:
+    """The counter ``name`` summed over every span."""
+    with _LOCK:
+        return sum(c.get(name, 0) for c in _COUNTS.values())
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``; the bytes of a tensor on a card are counted as
+    ``bytes_to_host.pageable`` (a copy to pageable memory, which waits
+    for the work queued before it)."""
+    if t.is_cuda:
+        count("bytes_to_host.pageable", t.numel() * t.element_size())
+    return t.cpu()
 
 
 def materialize(x):
@@ -211,23 +282,30 @@ def cuobjdump_sass(so_path: str) -> str:
 
 
 def counters() -> dict:
-    return {k: dict(v) for k, v in _REGISTRY.items()}
+    """``{span: {"calls", "seconds", "cells"}}`` of every span closed so
+    far."""
+    with _LOCK:
+        return {k: dict(v) for k, v in _REGISTRY.items()}
 
 
 def report(reset: bool = False) -> str:
-    """One JSON line per phase with seconds/calls/GCUPS."""
+    """One JSON line per phase with seconds/calls/GCUPS and the counts
+    made under it; ``reset`` clears timings and counts."""
     lines = []
-    for name, v in sorted(_REGISTRY.items()):
-        row = {
-            "phase": name,
-            "calls": v["calls"],
-            "seconds": round(v["seconds"], 4),
-        }
-        if v["cells"]:
-            row["gcups"] = round(gcups(v["cells"], v["seconds"]), 3)
-        lines.append(json.dumps(row))
-    if reset:
-        _REGISTRY.clear()
+    with _LOCK:
+        for name in sorted(set(_REGISTRY) | set(_COUNTS)):
+            row = {"phase": name}
+            v = _REGISTRY.get(name)
+            if v is not None:
+                row.update(calls=v["calls"], seconds=round(v["seconds"], 4))
+                if v["cells"]:
+                    row["gcups"] = round(gcups(v["cells"], v["seconds"]), 3)
+            if name in _COUNTS:
+                row["counts"] = dict(sorted(_COUNTS[name].items()))
+            lines.append(json.dumps(row))
+        if reset:
+            _REGISTRY.clear()
+            _COUNTS.clear()
     return "\n".join(lines)
 
 
@@ -236,7 +314,9 @@ def trace(log_dir: str = None):
     """A ``torch.profiler`` trace of the block (host activity, and the
     card's where one is present) written to ``log_dir`` as a Chrome
     trace (``<pid>.<ns>.pt.trace.json``) when a directory is given; a
-    no-op otherwise.  Yields the profiler, or None."""
+    no-op otherwise.  Every :class:`Phase` of the block is a range of
+    its name in the trace, on the clock of the device's work.  Yields
+    the profiler, or None."""
     if not log_dir:
         yield None
         return

@@ -32,7 +32,7 @@ import torch
 from .kmers import as_kmer_keys_np, as_kmer_seq
 from .ops import tables
 from .ops.banded_dp import resolve_device
-from .profiling import Phase
+from .profiling import Phase, host_copy
 from .sequence import Sequence, pack_sequences
 
 __all__ = ["Seed", "SeedIndex", "SeedIndexMultiple"]
@@ -100,8 +100,9 @@ class SeedIndex:
                 "seed count exceeds 2^31 for wordlen=%d — use a longer "
                 "wordlen or mask repetitive k-mers" % self.wordlen) from None
         # one copy of the sorted (d_, a) arrays to the host
-        da = torch.stack([out["d_"], out["a"]]).to(torch.int64)
-        self._d_, self._a = da.cpu().numpy()
+        with Phase("seeds.fetch"):
+            da = torch.stack([out["d_"], out["a"]]).to(torch.int64)
+            self._d_, self._a = host_copy(da).numpy()
         # composite key for O(log n) 2-D band queries
         self._acap = ls + lt + 1
         self._comp = self._d_ * self._acap + self._a

@@ -412,6 +412,22 @@ def fail(msg):
     sys.exit(1)
 
 
+def launched(*kernels):
+    """``{kernel: launches so far}`` of the named hand-written kernels
+    (``dp_ad``, ``walk``, ``dp_row``, ``transpose_probe``,
+    ``i16_probe``): the program's ``launches.<kernel>`` counts."""
+    from biseqt_tpu_torch import profiling
+
+    return {k: profiling.total("launches." + k) for k in kernels}
+
+
+def launched_since(before):
+    """The launches of each kernel of ``before`` (a :func:`launched`)
+    made after it."""
+    now = launched(*before)
+    return {k: now[k] - n for k, n in before.items()}
+
+
 def plant(np, rng, alphabet, Sequence):
     """S and T with N_BLOCKS homologous blocks between random spacers,
     and one segment dict per block from the planted coordinates."""
@@ -567,7 +583,6 @@ def genome_phase(dev, card, subst):
     from biseqt_tpu_torch import pipeline, profiling
     from biseqt_tpu_torch.blot import WordBlot
     from biseqt_tpu_torch.experiments.genome_homology import block_recall
-    from biseqt_tpu_torch.ops import dp_ad, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
@@ -590,13 +605,12 @@ def genome_phase(dev, card, subst):
     torch.cuda.synchronize()
     phases = ("seeds.build", "blot.discover", "pipeline.extend")
     before = profiling.counters()
-    dp_ad.LAUNCHES = 0
-    walk.LAUNCHES = 0
+    n0 = launched("dp_ad", "walk")
     t0 = time.perf_counter()
     found = pipeline.discover_and_extend(Sg, Tg, with_transcripts=True,
                                          device=dev, **DISCOVERY)
     whole_s = time.perf_counter() - t0
-    disc_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    disc_counts = launched_since(n0)
     after = profiling.counters()
     secs = {name: after[name]["seconds"]
             - before.get(name, {}).get("seconds", 0.0) for name in phases}
@@ -861,7 +875,6 @@ def mapping_phase(dev, card, subst):
     from biseqt_tpu_torch.blot import WordBlotLocalRef
     from biseqt_tpu_torch.database import DB, write_fasta
     from biseqt_tpu_torch.kmers import KmerIndex, as_kmer_keys_np
-    from biseqt_tpu_torch.ops import dp_ad, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags
     from biseqt_tpu_torch.sequence import Alphabet, NamedSequence
 
@@ -985,15 +998,14 @@ def mapping_phase(dev, card, subst):
 
         # -- each query's top segment extended with a transcript, counted
         r_arr = R.to_array()
-        dp_ad.LAUNCHES = 0
-        walk.LAUNCHES = 0
+        n0 = launched("dp_ad", "walk")
         with profiling.Phase("smoke.map.extend"):
             mapped = [pipeline.extend_segments(
                 q, R, [top], subst=subst, go_score=GO, ge_score=GE,
                 with_transcripts=True, device=dev)
                 for q, top in zip(queries, tops)]
             torch.cuda.synchronize()
-        map_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+        map_counts = launched_since(n0)
         secs = phase_seconds(before, names)
         plans = [pipeline.extension_plan([top], len(q), len(R), True)
                  for q, top in zip(queries, tops)]
@@ -1030,17 +1042,17 @@ def mapping_phase(dev, card, subst):
         # -- the same extension walked on the host (device_walk=False):
         # K1 on the card, each plane copied and walked by the C++ tier,
         # the transcripts the device walk's
-        dp_ad.LAUNCHES = 0
-        walk.LAUNCHES = 0
+        n0 = launched("dp_ad", "walk")
         t0 = time.perf_counter()
         host_walked = [pipeline.extend_segments(
             q, R, [top], subst=subst, go_score=GO, ge_score=GE,
             with_transcripts=True, device_walk=False, device=dev)
             for q, top in zip(queries, tops)]
         host_walk_s = time.perf_counter() - t0
-        if (dp_ad.LAUNCHES, walk.LAUNCHES) != (n_plan, 0):
-            fail("mapping, host walk: launches dp_ad %d, walk %d; the plans"
-                 " hold %d" % (dp_ad.LAUNCHES, walk.LAUNCHES, n_plan))
+        host_counts = launched_since(n0)
+        if host_counts != {"dp_ad": n_plan, "walk": 0}:
+            fail("mapping, host walk: launches %s; the plans hold %d"
+                 % (host_counts, n_plan))
         if host_walked != mapped:
             fail("mapping: the host walk's transcripts differ from the"
                  " device walk's")
@@ -1468,13 +1480,13 @@ def protein_phase(dev, card):
     two_tier_scores(ss[:8], ts[:8], lens[:8], lens[:8], dmin[:8],
                     w_eff=w_eff[:8], threshold=thr, device=dev, **kw)
     torch.cuda.synchronize()
-    dp_ad.LAUNCHES = 0
+    n0 = launched("dp_ad")
     t0 = time.perf_counter()
     res = two_tier_scores(ss, ts, lens, lens, dmin, w_eff=w_eff,
                           threshold=thr, engine="pallas", device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dp_ad.LAUNCHES
+    launches = launched_since(n0)["dp_ad"]
     if launches != 2:
         fail("two_tier_scores launched K1 %d times, not once a tier"
              % launches)
@@ -1627,7 +1639,6 @@ def experiments_phase(dev, card, band_rows, ibb_row):
     from biseqt_tpu_torch.experiments import (genome_homology,
                                               multiple_homology,
                                               wordblot_recall)
-    from biseqt_tpu_torch.ops import dp_ad, walk
 
     t_phase = time.perf_counter()
     secs = {}
@@ -1680,14 +1691,13 @@ def experiments_phase(dev, card, band_rows, ibb_row):
           % (card, json.dumps(ibb_row)))
 
     g = GENOME_RUN
-    dp_ad.LAUNCHES = 0
-    walk.LAUNCHES = 0
+    n0 = launched("dp_ad", "walk")
     t0 = time.perf_counter()
     row = genome_homology.run_once(g["seed"], g["size"], g["n_blocks"],
                                    g["wordlen"], transcripts=True,
                                    device=dev)
     secs["genome_homology"] = time.perf_counter() - t0
-    launches = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    launches = launched_since(n0)
     if not launches["dp_ad"] or launches["dp_ad"] != launches["walk"]:
         fail("genome_homology.run_once: launches %s, not one walk a DP"
              " launch" % launches)
@@ -2055,7 +2065,6 @@ def row_route_phase(dev, card, S, T, segments, out, narrow, subst):
     import torch
 
     from biseqt_tpu_torch import pipeline, profiling
-    from biseqt_tpu_torch.ops import dp_ad, walk
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
     t_phase = time.perf_counter()
@@ -2069,7 +2078,7 @@ def row_route_phase(dev, card, S, T, segments, out, narrow, subst):
         """``fn()`` on the host clock (ending in a synchronise), with the
         allocator's peak above what was held and the pipeline's spans; K1
         and the walk must not be launched."""
-        launches = (dp_ad.LAUNCHES, walk.LAUNCHES)
+        n0 = launched("dp_ad", "walk")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
@@ -2078,9 +2087,9 @@ def row_route_phase(dev, card, S, T, segments, out, narrow, subst):
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if (dp_ad.LAUNCHES, walk.LAUNCHES) != launches:
-            fail("%s: the row route launched K1 or the walk (%s -> %s)"
-                 % (label, launches, (dp_ad.LAUNCHES, walk.LAUNCHES)))
+        if any(launched_since(n0).values()):
+            fail("%s: the row route launched K1 or the walk (%s)"
+                 % (label, launched_since(n0)))
         return result, dict(
             seconds=wall,
             peak_bytes=torch.cuda.max_memory_allocated(dev) - held,
@@ -2528,7 +2537,6 @@ def wide_phase(dev, card, dna_pair):
     import torch
 
     from biseqt_tpu_torch import pipeline, pw
-    from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
     from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
     t_phase = time.perf_counter()
@@ -2564,12 +2572,12 @@ def wide_phase(dev, card, dna_pair):
     widths = sorted({launch[3] for launch in launches})
     ekw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True,
                device=dev)
-    dp_ad.LAUNCHES = walk.LAUNCHES = 0
+    n0 = launched("dp_ad", "walk")
     with _TwinCalls() as twins:
         t0 = time.perf_counter()
         out = pipeline.extend_segments(S, T, [seg], **ekw)
         ext_s = time.perf_counter() - t0
-    counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    counts = launched_since(n0)
     if counts != {"dp_ad": len(launches), "walk": len(launches)} \
             or twins.calls or min(widths) < 6144:
         fail("wide extension: W %s, %d launches planned, %s counted, %d"
@@ -2606,7 +2614,7 @@ def wide_phase(dev, card, dna_pair):
     core, mut = dna_pair
     aligned = {}
     for backend in ("pallas", "pallas_row", "native"):
-        n0 = (dp_ad.LAUNCHES, dp_row.LAUNCHES)
+        n0 = launched("dp_ad", "dp_row")
         with _TwinCalls() as twins, pw.Aligner(
                 Sequence(A4, core), Sequence(A4, mut),
                 alnmode=pw.BANDED_MODE, alntype=pw.B_LOCAL,
@@ -2616,11 +2624,12 @@ def wide_phase(dev, card, dna_pair):
             t0 = time.perf_counter()
             score = aln.solve()
             seconds = time.perf_counter() - t0
-        launched = (dp_ad.LAUNCHES - n0[0], dp_row.LAUNCHES - n0[1])
+        grew = launched_since(n0)
+        grew = (grew["dp_ad"], grew["dp_row"])
         want = {"pallas": (1, 0), "pallas_row": (0, 1), "native": (0, 0)}
-        if launched != want[backend] or twins.calls:
+        if grew != want[backend] or twins.calls:
             fail("wide Aligner %s: launches (K1, K4) %s, %d twin calls"
-                 % (backend, launched, twins.calls))
+                 % (backend, grew, twins.calls))
         aligned[backend] = (score, seconds)
     if len({score for score, _ in aligned.values()}) != 1:
         fail("wide Aligner: scores differ: %s" % aligned)
@@ -2785,13 +2794,12 @@ def run(recall_reads, band_rows):
     torch.cuda.synchronize()
 
     # -- 2. the main path, counted ---------------------------------------
-    dp_ad.LAUNCHES = 0
-    walk.LAUNCHES = 0
+    n0 = launched("dp_ad", "walk")
     t0 = time.perf_counter()
     out = pipeline.extend_segments(S, T, segments, **kw)
     e2e = time.perf_counter() - t0
     narrow = pipeline.extend_segments(S, T, segments[:NARROW], **kw)
-    counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    counts = launched_since(n0)
     _, _, cut, launches = pipeline.extension_plan(segments, len(S), len(T),
                                                   True)
     n_launches = len(launches) + len(pipeline.plan_launches(cut[:NARROW],
@@ -3002,10 +3010,10 @@ def run(recall_reads, band_rows):
     # warm-up: the row kernel's first launch, on a small pair
     align(Sequence(A4, core[:500]), Sequence(A4, mut[:500]), pw.B_LOCAL,
           PAIR_BAND, None, GO, GE, "pallas_row", True)
-    dp_row.LAUNCHES = 0
+    n0 = launched("dp_row")
     row_out = [align(S, T, alntype, band, psub, go, ge, "pallas_row", True)
                for _, S, T, alntype, band, psub, go, ge in pairs]
-    row_launches = dp_row.LAUNCHES
+    row_launches = launched_since(n0)["dp_row"]
     print("launches of the row kernel on the pairwise path: %d"
           % row_launches)
     if row_launches < 2 * len(pairs):
@@ -3166,12 +3174,10 @@ def run(recall_reads, band_rows):
           % (row_bound, row_bound_by, row_work[0] / 1e6, row_work[1] / 1e9))
 
     # -- 8. the experiment probes, counted -------------------------------
-    transpose_probe.LAUNCHES = 0
-    i16_probe.LAUNCHES = 0
+    n0 = launched("transpose_probe", "i16_probe")
     tr_legs = transpose_probe.run()
     i16_rows = i16_probe.run(rows=I16_ROW_COUNTS)
-    probe_counts = {"transpose_probe": transpose_probe.LAUNCHES,
-                    "i16_probe": i16_probe.LAUNCHES}
+    probe_counts = launched_since(n0)
     print("launches of the probes' kernels: %s" % probe_counts)
     if not all(probe_counts.values()):
         fail("a probe did not go through its kernel: %s" % probe_counts)
@@ -3234,10 +3240,9 @@ def run(recall_reads, band_rows):
     Tw = Sequence(A4, wr.choice(4, WIDE_LEN))
     wseg = [{"segment": WIDE_SEGMENT}]
     ekw = dict(subst=subst, go_score=GO, ge_score=GE, with_transcripts=True)
-    dp_ad.LAUNCHES = 0
-    walk.LAUNCHES = 0
+    n0 = launched("dp_ad", "walk")
     wide = pipeline.extend_segments(Sw, Tw, wseg, device=dev, **ekw)
-    wide_counts = {"dp_ad": dp_ad.LAUNCHES, "walk": walk.LAUNCHES}
+    wide_counts = launched_since(n0)
     wide_cpu = pipeline.extend_segments(Sw, Tw, wseg, device="cpu", **ekw)
     wcut = [pipeline.cut_segment(seg, WIDE_LEN, WIDE_LEN) for seg in wseg]
     (widx, wLS, wLT, wW), = pipeline.plan_launches(wcut, True)

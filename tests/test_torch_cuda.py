@@ -14,16 +14,20 @@ batch helpers are shared with the CPU parity tests
 tests/test_torch_dp_row.py).
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import blot, pw
+from biseqt_tpu_torch import blot, profiling, pw
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
 from biseqt_tpu_torch.ops import dp_ad, dp_row, steps, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
-from biseqt_tpu_torch.pipeline import discover_and_extend, extend_segments
+from biseqt_tpu_torch.pipeline import (discover_and_extend, extend_segments,
+                                       extension_plan)
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +50,16 @@ GENERAL = np.array(
     np.float32)
 # the bands above 4096 lanes, run as thread-block clusters
 CLUSTER_WS = [6144, 8192, 12288, 16384, 24576, 32768, 49152, 65536]
+
+
+# the hand-written kernels, each counted as ``launches.<kernel>``
+KERNELS = ("dp_ad", "walk", "dp_row", "transpose_probe", "i16_probe")
+
+
+def launches(*kernels):
+    """Launches so far of the named kernels (all of ``KERNELS`` when none
+    is named), over every span."""
+    return sum(profiling.total("launches." + k) for k in kernels or KERNELS)
 
 
 def random_subst(rng, A):
@@ -173,12 +187,12 @@ def test_dp_ad_kernel_matches_plain(rng, card, flags, W):
                   w_eff=torch.as_tensor(w_eff, device=card), r_chunk=16,
                   device=card)
         for with_dirs in (True, False):
-            n0 = dp_ad.LAUNCHES
+            n0 = launches("dp_ad")
             got = dp_ad.banded_dp_ad(*args, with_dirs=with_dirs, **kw)
-            assert dp_ad.LAUNCHES == n0 + 1
+            assert launches("dp_ad") == n0 + 1
             want = dp_ad.banded_dp_ad_reference(*args, with_dirs=with_dirs,
                                                 **kw)
-            assert dp_ad.LAUNCHES == n0 + 1
+            assert launches("dp_ad") == n0 + 1
             _assert_results_equal(got, want)
         assert float(got.score.max()) > 60
 
@@ -205,9 +219,9 @@ def test_dp_ad_kernel_odd_pairs_and_chunk_wrap(rng, card, flags, r_chunk):
                   w_eff=torch.as_tensor(w_eff, device=card),
                   r_chunk=r_chunk, device=card)
         for with_dirs in (True, False):
-            n0 = dp_ad.LAUNCHES
+            n0 = launches("dp_ad")
             got = dp_ad.banded_dp_ad(*args, with_dirs=with_dirs, **kw)
-            assert dp_ad.LAUNCHES == n0 + 1
+            assert launches("dp_ad") == n0 + 1
             want = dp_ad.banded_dp_ad_reference(*args, with_dirs=with_dirs,
                                                 **kw)
             _assert_results_equal(got, want)
@@ -233,9 +247,9 @@ def test_dp_ad_cluster_edges_match_plain(rng, card, flags, W):
         kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
                   r_chunk=16, device=card)
         for with_dirs in (True, False):
-            n0 = dp_ad.LAUNCHES
+            n0 = launches("dp_ad")
             got = dp_ad.banded_dp_ad(*args, with_dirs=with_dirs, **kw)
-            assert dp_ad.LAUNCHES == n0 + 1
+            assert launches("dp_ad") == n0 + 1
             _assert_results_equal(got, dp_ad.banded_dp_ad_reference(
                 *args, with_dirs=with_dirs, **kw))
     if flags.get("local_start"):
@@ -285,10 +299,10 @@ def test_walk_kernel_over_a_cluster_plane(rng, card):
                              with_dirs=True, device=card)
     dminq = dp_ad.parity_adjusted_dmin(
         args[4], torch.arange(len(lanes), device=card) % 2)
-    n0 = walk.LAUNCHES
+    n0 = launches("walk")
     got = walk.traceback_walk(res.dirs, dminq, res.end_i, res.end_j, W=W,
                               device=card)
-    assert walk.LAUNCHES == n0 + 1
+    assert launches("walk") == n0 + 1
     want = walk.traceback_walk_reference(res.dirs, dminq, res.end_i,
                                          res.end_j, W=W, device=card)
     _assert_results_equal(got, want)
@@ -418,9 +432,9 @@ def test_walk_kernel_matches_plain(rng, card, kind, B2, Rp, W):
     boundaries, odd Rp, skipped pairs and end cells beyond the plane."""
     on = [torch.as_tensor(x, device=card)
           for x in _walk_plane(rng, kind, B2, Rp, W)]
-    n0 = walk.LAUNCHES
+    n0 = launches("walk")
     got = walk.traceback_walk(*on, W=W, device=card)
-    assert walk.LAUNCHES == n0 + 1
+    assert launches("walk") == n0 + 1
     want = walk.traceback_walk_reference(*on, W=W, device=card)
     _assert_results_equal(got, want)
     assert got[0].any()
@@ -451,26 +465,28 @@ def test_extend_segments_card_matches_cpu(rng, card):
     T = Sequence(A4, np.concatenate(t_parts))
     kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
               _r_chunk=16)
-    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    n_plan = len(extension_plan(segments, len(S), len(T), True)[3])
+    n_dp, n_walk = launches("dp_ad"), launches("walk")
     got = extend_segments(S, T, segments, device=card, **kw)
-    assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES > n_walk
+    assert launches("dp_ad") - n_dp == launches("walk") - n_walk == n_plan
     want = extend_segments(S, T, segments, device="cpu", **kw)
     assert got == want
     assert all(seg["score"] > 150 and len(seg["transcript"]) > 250
                for seg in got)
     # the host walk over the card's plane: K1 launched, the walk kernel
     # not, and the transcripts the device walk's
-    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    n_dp, n_walk = launches("dp_ad"), launches("walk")
     host = extend_segments(S, T, segments, device=card, use_pallas=True,
                            device_walk=False, **kw)
-    assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES == n_walk
+    assert launches("dp_ad") - n_dp == n_plan
+    assert launches("walk") == n_walk
     assert host == got
     # the row route on the card: the row engine there, no kernel
     # launched, equal to the same route on the CPU
-    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    n0 = launches()
     row = extend_segments(S, T, segments, device=card, use_pallas=False,
                           **kw)
-    assert dp_ad.LAUNCHES == n_dp and walk.LAUNCHES == n_walk
+    assert launches() == n0
     assert row == extend_segments(S, T, segments, device="cpu",
                                   use_pallas=False, **kw)
     assert [seg["score"] for seg in row] == [seg["score"] for seg in got]
@@ -499,6 +515,72 @@ def _three_launch_plan(rng):
     return S, T, segments
 
 
+def _counted_since(before):
+    """The counts made since the ``profiling.counts()`` snapshot
+    ``before``, by span."""
+    out = {}
+    for span, row in profiling.counts().items():
+        grew = {k: n - before.get(span, {}).get(k, 0) for k, n in row.items()
+                if n != before.get(span, {}).get(k, 0)}
+        if grew:
+            out[span] = grew
+    return out
+
+
+def test_counts_and_ranges_of_a_call_on_the_card(rng, card, tmp_path):
+    """Extension on the card counts K1 and the walk under
+    ``pipeline.launch`` (with the results' copies to pinned memory) and
+    the inputs' copies to the card under ``dp_ad.inputs``; discovery
+    counts its copies to pageable memory under ``seeds.fetch``,
+    ``blot.grid`` and ``blot.stats``; under a profiler the spans are
+    ranges beside the card's kernels."""
+    S, T, segments = _three_launch_plan(rng)
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
+              _r_chunk=16, device=card)
+    extend_segments(S, T, segments, **kw)
+    before = profiling.counts()
+    extend_segments(S, T, segments, **kw)
+    got = _counted_since(before)
+    assert set(got) == {"pipeline.launch", "dp_ad.inputs"}
+    assert got["pipeline.launch"]["launches.dp_ad"] == 3
+    assert got["pipeline.launch"]["launches.walk"] == 3
+    # per launch: the walk's band starts to the card; the scores, the
+    # cursors and the trace back to pinned memory
+    assert set(got["pipeline.launch"]) == {
+        "launches.dp_ad", "launches.walk", "bytes_to_card",
+        "bytes_to_host.pinned"}
+    assert got["pipeline.launch"]["bytes_to_card"] > 0
+    assert got["pipeline.launch"]["bytes_to_host.pinned"] > 3 * 4 * 5
+    assert set(got["dp_ad.inputs"]) == {"bytes_to_card"}
+    codes = sum(len(S) + len(T) for _ in range(3))
+    assert got["dp_ad.inputs"]["bytes_to_card"] > codes // 4
+
+    G, H = _planted_genome_pair(rng, size=60_000, blocks=3, block=5000)
+    before = profiling.counts()
+    wb = blot.WordBlot(G, H, wordlen=12, g_max=0.1, device=card)
+    segs = list(wb.similar_segments(K_min=1500, p_min=0.6))
+    got = _counted_since(before)
+    assert len(segs) >= 3
+    assert got["seeds.fetch"] == {
+        "bytes_to_host.pageable": 2 * 8 * len(wb.seed_index)}
+    assert got["blot.grid"]["bytes_to_host.pageable"] > 0
+    # p-hat, S0 and S1 in float32 for every candidate, kept or not
+    stats = got["blot.stats"]["bytes_to_host.pageable"]
+    assert stats % 12 == 0 and stats >= 12 * len(segs)
+
+    with profiling.trace(str(tmp_path)):
+        extend_segments(S, T, segments, **kw)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"pipeline.extend", "pipeline.launch", "dp_ad.inputs",
+            "pipeline.wait", "pipeline.compact"} <= names
+    assert any(e.get("cat") == "kernel" and "dp_ad_kernel" in e["name"]
+               for e in events)
+
+
 @pytest.mark.parametrize("device_walk", [True, False])
 def test_extend_segments_in_flight_equals_serial_on_the_card(
         rng, card, monkeypatch, device_walk):
@@ -512,11 +594,14 @@ def test_extend_segments_in_flight_equals_serial_on_the_card(
               device_walk=device_walk, _r_chunk=16)
     assert len(pipeline.extension_plan(segments, len(S), len(T),
                                        True)[3]) == 3
-    n_dp = dp_ad.LAUNCHES
+    n_dp, n_walk = launches("dp_ad"), launches("walk")
     in_flight = extend_segments(S, T, segments, device=card, **kw)
     monkeypatch.setattr(pipeline, "PIPELINE_BYTES", 0)
     serial = extend_segments(S, T, segments, device=card, **kw)
-    assert dp_ad.LAUNCHES - n_dp == 6
+    # K1 on each of the 3 launches, twice, and the walk after each on
+    # the device walk's route
+    assert launches("dp_ad") - n_dp == 6
+    assert launches("walk") - n_walk == (6 if device_walk else 0)
     assert in_flight == serial
     assert serial == extend_segments(S, T, segments, device="cpu", **kw)
     assert all(seg["score"] > 150 for seg in serial)
@@ -545,11 +630,11 @@ def test_extend_segments_row_route_in_flight_on_the_card(rng, card,
             torch.cuda.set_sync_debug_mode("default")
 
     monkeypatch.setattr(pipeline, "_dispatch", without_sync)
-    counts = (dp_ad.LAUNCHES, walk.LAUNCHES, dp_row.LAUNCHES)
+    n0 = launches()
     in_flight = extend_segments(S, T, segments, device=card, **kw)
     monkeypatch.setattr(pipeline, "PIPELINE_BYTES", 0)
     serial = extend_segments(S, T, segments, device=card, **kw)
-    assert (dp_ad.LAUNCHES, walk.LAUNCHES, dp_row.LAUNCHES) == counts
+    assert launches() == n0
     assert in_flight == serial
     assert serial == extend_segments(S, T, segments, device="cpu", **kw)
     assert all(seg["score"] > 150 for seg in serial)
@@ -603,12 +688,12 @@ def test_dp_row_kernel_matches_plain(rng, card, flags, A, W, B):
     kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
               w_eff=torch.as_tensor(w_eff, device=card), device=card)
     for with_dirs in (False, True):
-        n0 = dp_row.LAUNCHES
+        n0 = launches("dp_row")
         got = dp_row.banded_dp_row(*args, with_dirs=with_dirs, **kw)
-        assert dp_row.LAUNCHES == n0 + 1
+        assert launches("dp_row") == n0 + 1
         want = dp_row.banded_dp_row_reference(*args, with_dirs=with_dirs,
                                               **kw)
-        assert dp_row.LAUNCHES == n0 + 1
+        assert launches("dp_row") == n0 + 1
         _assert_results_equal(got, want)
     assert float(got.score.max()) > 100
 
@@ -663,9 +748,9 @@ def test_dp_row_cluster_edges_match_plain(rng, card, flags, W):
         kw = dict(W=W, subst=subst, go=go, ge=ge, flags=ModeFlags(**flags),
                   device=card)
         for with_dirs in (False, True):
-            n0 = dp_row.LAUNCHES
+            n0 = launches("dp_row")
             got = dp_row.banded_dp_row(*args, with_dirs=with_dirs, **kw)
-            assert dp_row.LAUNCHES == n0 + 1
+            assert launches("dp_row") == n0 + 1
             _assert_results_equal(got, dp_row.banded_dp_row_reference(
                 *args, with_dirs=with_dirs, **kw))
     if flags.get("local_start"):
@@ -725,10 +810,10 @@ def test_aligner_pallas_row_card_matches_cpu(rng, card):
             kw = dict(alnmode=pw.BANDED_MODE, alntype=alntype,
                       diag_range=(-20, 20), subst_scores=subst,
                       go_score=go, ge_score=ge, backend="pallas_row")
-            n0 = dp_row.LAUNCHES
+            n0 = launches("dp_row")
             with pw.Aligner(S, T, device=card, **kw) as aln:
                 got = (aln.solve(), aln.traceback())
-            assert dp_row.LAUNCHES == n0 + 2
+            assert launches("dp_row") == n0 + 2
             with pw.Aligner(S, T, device="cpu", **kw) as aln:
                 want = (aln.solve(), aln.traceback())
             assert got[0] == want[0] and got[0] > 100
@@ -743,7 +828,7 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     x = torch.zeros((2, 8), dtype=torch.int8, device=card)
     lens = torch.full((2,), 8, dtype=torch.int32, device=card)
     kw = dict(subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(), device=card)
-    n0 = dp_ad.LAUNCHES
+    n0 = launches()
     with pytest.raises(ValueError, match="W must be even"):
         dp_ad.banded_dp_ad(x, x, lens, lens, lens * 0, W=4100, **kw)
     with pytest.raises(ValueError, match="MAX_W = %d" % dp_ad.MAX_W):
@@ -754,14 +839,12 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     with pytest.raises(ValueError, match="dirs must be uint8"):
         walk.traceback_walk(torch.zeros((4, 1, 128), device=card), lens,
                             lens, lens, W=128, device=card)
-    n_walk = walk.LAUNCHES
     with pytest.raises(ValueError, match="multiple of 16"):
         walk.traceback_walk(torch.zeros((4, 1, 130), dtype=torch.uint8,
                                         device=card), lens, lens, lens,
                             W=130, device=card)
-    assert walk.LAUNCHES == n_walk
-    assert dp_ad.LAUNCHES == n0
-    n0 = dp_row.LAUNCHES
+    assert launches() == n0
+    n0 = launches()
     with pytest.raises(ValueError, match="multiple of 128"):
         dp_row.banded_dp_row(x, x, lens, lens, lens * 0, W=200, **kw)
     with pytest.raises(ValueError, match="A = 20"):
@@ -769,8 +852,8 @@ def test_kernel_wrappers_refuse_bad_launches(card):
     with pytest.raises(ValueError, match="MAX_W = %d" % dp_row.MAX_W):
         dp_row.banded_dp_row(x, x, lens, lens, lens * 0,
                              W=dp_row.MAX_W + 8192, **kw)
-    assert dp_row.LAUNCHES == n0
-    n0 = transpose_probe.LAUNCHES, i16_probe.LAUNCHES
+    assert launches() == n0
+    n0 = launches()
     with pytest.raises(ValueError, match="passed with device"):
         transpose_probe.transpose_minor(torch.zeros((1, 2, 3),
                                                     dtype=torch.uint8),
@@ -779,7 +862,7 @@ def test_kernel_wrappers_refuse_bad_launches(card):
         i16_probe.i16_op("add", x, device=card)
     with pytest.raises(ValueError, match="unknown op"):
         i16_probe.i16_op("mul", x.to(torch.int16), device=card)
-    assert (transpose_probe.LAUNCHES, i16_probe.LAUNCHES) == n0
+    assert launches() == n0
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 40, 72), (2, 128, 128),
@@ -790,11 +873,11 @@ def test_transpose_kernel_matches_plain(rng, card, shape):
     (the byte path), and the probe's plane, larger than L2."""
     x = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8),
                         device=card)
-    n0 = transpose_probe.LAUNCHES
+    n0 = launches("transpose_probe")
     got = transpose_probe.transpose_minor(x, device=card)
-    assert transpose_probe.LAUNCHES == n0 + 1
+    assert launches("transpose_probe") == n0 + 1
     want = transpose_probe.transpose_minor_reference(x, device=card)
-    assert transpose_probe.LAUNCHES == n0 + 1
+    assert launches("transpose_probe") == n0 + 1
     assert got.shape == (shape[0], shape[2], shape[1]) and torch.equal(
         got, want)
 
@@ -821,11 +904,11 @@ def test_i16_kernel_matches_plain(rng, card, name, rows):
     host = (i16_probe.probe_input() if rows == 256 else
             rng.integers(-32768, 32768, (rows, 128)).astype(np.int16))
     x = torch.as_tensor(host, device=card)
-    n0 = i16_probe.LAUNCHES
+    n0 = launches("i16_probe")
     got = i16_probe.i16_op(name, x, device=card)
-    assert i16_probe.LAUNCHES == n0 + 1
+    assert launches("i16_probe") == n0 + 1
     want = i16_probe.i16_op_reference(name, x, device=card)
-    assert i16_probe.LAUNCHES == n0 + 1
+    assert launches("i16_probe") == n0 + 1
     assert got.dtype == torch.int16 and torch.equal(got, want)
     for shift in (1, 4):
         shifted = torch.cat([x.new_zeros(shift), x.reshape(-1)])[shift:]
@@ -838,22 +921,22 @@ def test_entry_points_default_to_the_card(rng, card):
     """Called without ``device``, the entry points run on the card."""
     x = torch.as_tensor(rng.integers(0, 256, (2, 64, 128)).astype(np.uint8),
                         device=card)
-    n0 = transpose_probe.LAUNCHES
+    n0 = launches("transpose_probe")
     assert torch.equal(transpose_probe.transpose_minor(x),
                        x.transpose(1, 2).contiguous())
-    assert transpose_probe.LAUNCHES == n0 + 1
+    assert launches("transpose_probe") == n0 + 1
     A4 = Alphabet("ACGT")
     S = Sequence(A4, rng.integers(0, 4, 300))
-    n_dp, n_row = dp_ad.LAUNCHES, dp_row.LAUNCHES
+    n_dp, n_row = launches("dp_ad"), launches("dp_row")
     out = extend_segments(S, S, [{"segment": ((-8, 8), (20, 560))}])
-    assert dp_ad.LAUNCHES == n_dp + 1 and out[0]["score"] == 300.0
+    assert launches("dp_ad") == n_dp + 1 and out[0]["score"] == 300.0
     with pw.Aligner(S, S, alnmode=pw.BANDED_MODE, alntype=pw.B_GLOBAL,
                     diag_range=(-10, 10), backend="pallas_row") as aln:
         assert aln.solve() == 300.0
-    assert dp_row.LAUNCHES == n_row + 1
-    n_dp = dp_ad.LAUNCHES
+    assert launches("dp_row") == n_row + 1
+    n_dp = launches("dp_ad")
     out = discover_and_extend(S, S, K_min=100, with_transcripts=True)
-    assert dp_ad.LAUNCHES > n_dp and out[0]["score"] == 300.0
+    assert launches("dp_ad") > n_dp and out[0]["score"] == 300.0
     assert blot.WordBlot(S, S).seed_index.device.type == "cuda"
 
 
@@ -916,9 +999,14 @@ def test_discover_and_extend_on_the_card(rng, card):
     the same segments by the plain twins on the CPU."""
     S, T = _planted_genome_pair(rng, size=60_000, blocks=3, block=5000)
     kw = dict(wordlen=12, g_max=0.1, K_min=1500, p_min=0.6)
-    n_dp, n_walk = dp_ad.LAUNCHES, walk.LAUNCHES
+    n_dp, n_walk = launches("dp_ad"), launches("walk")
+    dispatched = profiling.counters().get("pipeline.launch", {}).get(
+        "calls", 0)
     got = discover_and_extend(S, T, with_transcripts=True, device=card, **kw)
-    assert dp_ad.LAUNCHES > n_dp and walk.LAUNCHES > n_walk
+    # K1 and the walk on each launch dispatched
+    n_dispatch = profiling.counters()["pipeline.launch"]["calls"] - dispatched
+    assert n_dispatch and launches("dp_ad") - n_dp == n_dispatch
+    assert launches("walk") - n_walk == n_dispatch
     assert len(got) >= 3 and got == sorted(got, key=lambda s: -s["score"])
     for seg in got:
         aln = pw.Alignment(S, T, seg["transcript"],
@@ -1154,18 +1242,18 @@ def test_two_tier_card_matches_cpu(rng, card, threshold):
               flags=ModeFlags(local_start=True, local_end=True),
               threshold=threshold, engine="pallas")
     dmin = np.full((B,), -50, np.int32)
-    before = dp_ad.LAUNCHES
+    before = launches("dp_ad")
     got = two_tier_scores(ss, ts, lens, lens, dmin, device=card, **kw)
-    launches = dp_ad.LAUNCHES - before
+    launched = launches("dp_ad") - before
     want = two_tier_scores(ss, ts, lens, lens, dmin, device="cpu", **kw)
     for name in ("reduced_scores", "survivors", "survivor_idx",
                  "full_scores"):
         assert np.array_equal(getattr(got, name), getattr(want, name)), name
     if threshold < 1e9:
-        assert got.survivors[:B // 4].all() and launches == 2
+        assert got.survivors[:B // 4].all() and launched == 2
         assert torch.equal(got.full.score.cpu(), want.full.score)
     else:
-        assert got.full is None and launches == 1
+        assert got.full is None and launched == 1
 
 
 def _sharded_pairs(rng, B, L):

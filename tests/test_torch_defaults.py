@@ -35,12 +35,12 @@ from biseqt_tpu_torch.ops import (allvsall_sorted, banded_dp, blot_stats,
 from biseqt_tpu_torch.parallel import (allvsall, mesh, sharded_dp,
                                        sharded_dp_ad, sweep)
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
+from test_torch_cuda import launches
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "biseqt_tpu_torch")
 
 UNIT = np.where(np.eye(4, dtype=bool), 1.0, -1.0).astype(np.float32)
-LAUNCH_COUNTERS = (dp_ad, dp_row, walk, transpose_probe, i16_probe)
 
 
 def _pairs():
@@ -327,12 +327,12 @@ def test_entry_point_defaults_to_the_card(name, monkeypatch):
     fn, call = ENTRY_POINTS[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    launches = [m.LAUNCHES for m in LAUNCH_COUNTERS]
+    n0 = launches()
     with pytest.raises(RuntimeError, match="CUDA card and none is present"):
         call()
-    assert [m.LAUNCHES for m in LAUNCH_COUNTERS] == launches
+    assert launches() == n0
     call(device="cpu")                    # the same call runs on the CPU
-    assert [m.LAUNCHES for m in LAUNCH_COUNTERS] == launches
+    assert launches() == n0
 
 
 def test_native_source_is_the_ports_own_copy():

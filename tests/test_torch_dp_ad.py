@@ -21,7 +21,8 @@ from biseqt_tpu_torch.ops.dp_ad import (banded_dp_ad, live_nibbles,
                                         parity_adjusted_dmin)
 from biseqt_tpu_torch.sequence import from_reference
 from test_pallas_dp_ad import _rescore
-from test_torch_cuda import UNIT, mk_batch, mk_edge_batch, random_subst
+from test_torch_cuda import (UNIT, launches, mk_batch, mk_edge_batch,
+                             random_subst)
 
 FLAG_CASES = [
     dict(local_start=True, local_end=True),
@@ -266,8 +267,8 @@ def test_dp_ad_widths_the_kernel_refuses(rng):
     W = dp_ad.MAX_W + 8192
     g = dp_ad._geometry(*args, w_eff, W=W, subst=UNIT, go=-2.0, ge=-1.0,
                         r_chunk=16, device=torch.device("cpu"))
-    n0 = dp_ad.LAUNCHES
+    n0 = launches("dp_ad")
     with pytest.raises(ValueError, match="MAX_W = 65536.*use_pallas=False"
                        ".*band_sharded_ad_traceback"):
         dp_ad._sweep_cuda(g, dp_ad.ModeFlags(), True)
-    assert dp_ad.LAUNCHES == n0
+    assert launches("dp_ad") == n0

@@ -28,8 +28,8 @@ from biseqt_tpu_torch.ops import dp_row
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags, traceback_path
 from biseqt_tpu_torch.ops.dp_row import banded_dp_row
 
-from test_torch_cuda import (ROW_FLAGS, UNIT, mk_edge_batch, mk_row_batch,
-                             random_subst)
+from test_torch_cuda import (ROW_FLAGS, UNIT, launches, mk_edge_batch,
+                             mk_row_batch, random_subst)
 
 A4 = Alphabet("ACGT")
 
@@ -125,11 +125,11 @@ def test_dp_row_widths_the_kernel_refuses(rng):
     args, w_eff = mk_row_batch(rng, L=100)
     g = dp_row._prepare(*args, None, W=dp_row.MAX_W + 8192, subst=UNIT,
                         go=-2.0, ge=-1.0, A=None, device=torch.device("cpu"))
-    n0 = dp_row.LAUNCHES
+    n0 = launches("dp_row")
     with pytest.raises(ValueError, match="MAX_W = 65536.*native.*"
                        "banded_dp_band_sharded"):
         dp_row._sweep_cuda(g, ModeFlags(), True)
-    assert dp_row.LAUNCHES == n0
+    assert launches("dp_row") == n0
 
 
 def lax_and_row(args, *, flags, w_eff=None, **kw):
@@ -279,8 +279,8 @@ def test_dp_row_never_falls_back_to_cpu(rng):
     args, w_eff = mk_row_batch(rng, L=100)
     kw = dict(W=128, subst=UNIT, go=-2.0, ge=-1.0, flags=ModeFlags(),
               w_eff=w_eff)
-    n0 = dp_row.LAUNCHES
+    n0 = launches("dp_row")
     banded_dp_row(*args, device="cpu", **kw)
-    assert dp_row.LAUNCHES == n0
+    assert launches("dp_row") == n0
     with pytest.raises((AssertionError, RuntimeError)):
         banded_dp_row(*args, device="cuda", **kw)

@@ -23,11 +23,12 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
+from biseqt_tpu_torch.experiments import i16_probe
 from biseqt_tpu_torch.experiments.i16_probe import (OPS, i16_op,
                                                     i16_op_reference)
 from biseqt_tpu_torch.experiments.transpose_probe import (
     transpose_minor, transpose_minor_reference)
+from test_torch_cuda import launches
 
 # the probe's block rows and lanes (transpose_probe.py:41, :64)
 BT = W = 128
@@ -38,9 +39,9 @@ SHAPES = [(2, BT, W), (3, 2 * BT, W), (3, 40, 72), (1, 1, 1), (2, 130, 257),
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_transpose_matches_probe_legs(rng, shape):
     x = rng.integers(0, 256, shape).astype(np.uint8)
-    n0 = transpose_probe.LAUNCHES
+    n0 = launches("transpose_probe")
     got = transpose_minor(x, device="cpu")
-    assert transpose_probe.LAUNCHES == n0          # the CPU launches nothing
+    assert launches("transpose_probe") == n0                 # the CPU launches nothing
     assert got.dtype == torch.uint8 and got.is_contiguous()
     assert got.shape == (shape[0], shape[2], shape[1])
     np.testing.assert_array_equal(got.numpy(), x.transpose(0, 2, 1))
@@ -134,7 +135,7 @@ def test_i16_op_matches_probe_kernel(rng, name):
     cast wrap) and random int16 over the whole range, including 4s."""
     random = rng.integers(-32768, 32768, (256, 128)).astype(np.int16)
     random[::3, ::5] = 4
-    n0 = i16_probe.LAUNCHES
+    n0 = launches("i16_probe")
     for x in (i16_probe.probe_input(), random):
         want = try_op(REF_BODIES[name], x)
         got = i16_op(name, x, device="cpu")
@@ -143,7 +144,7 @@ def test_i16_op_matches_probe_kernel(rng, name):
         np.testing.assert_array_equal(
             i16_op_reference(name, torch.as_tensor(x), device="cpu").numpy(),
             want)
-    assert i16_probe.LAUNCHES == n0                # the CPU launches nothing
+    assert launches("i16_probe") == n0                 # the CPU launches nothing
 
 
 def test_i16_op_ragged_rows_and_bad_input(rng):
