@@ -48,6 +48,7 @@ namespace {
 constexpr int OP_INS = 2;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int D = 64;   // antidiagonals per plane window
+constexpr int MAX_THREADS = 1024;   // a compaction block's (ops/compact.py)
 
 // One buffer holds D / 2 + 1 rows of 4D + 16 bytes (4D + 1 lanes with
 // the start rounded down to 16 bytes).
@@ -218,6 +219,187 @@ __global__ void walk_kernel(const uint8_t* __restrict__ dirs,
     }
 }
 
+// Compaction of the walk's op trace into MSID transcripts, on the card.
+//
+// Replaces no TPU kernel: the JAX package copies the trace to the host
+// and replays it there (pwnative.cpp bst_compact_sweep_batch_t), and so
+// did the port.  That replay is serial and branchy, one pair at a time
+// (~4 ns an antidiagonal on one core), and became the largest cost of a
+// batched extension call while the card sat idle.  This kernel computes
+// the same bytes; the Python wrapper is biseqt_tpu_torch/ops/compact.py,
+// whose plain PyTorch twin (_compact_plain) computes them too.
+//
+// Semantics (bst_compact_sweep_batch_t's, byte for byte): pair b's ops
+// sit in column b / 2 of plane b % 2 of the trace, antidiagonal a's op in
+// bits 2 (a % 4) of byte row a / 4.  The replay ascends from the walk's
+// final cursor (fin_i, fin_j) over the antidiagonals a >= fin_i + fin_j
+// of the trace: op 1 writes M or S by comparing s[i] with t[j] and moves
+// both, op 2 writes I and moves j, op 3 writes D and moves i.  Anchored
+// modes put D^fin_i I^fin_j first; fin_i < 0 or fin_j < 0 is a skipped
+// pair (length 0).
+//
+// What bounds it on this card.  Bytes: the trace, a pair of letters for
+// each diagonal op and each transcript byte, ~74 MB for 2048 pairs of
+// 10 kbp, ~0.022 ms at 3.35 TB/s (the kernel reads the trace twice: to
+// count, to replay).  In the batched launch a pair's trace bytes lie a
+// column apart (B2 bytes), so each byte read is a sector of its own.
+//
+// What the design does about it.  An op's place in the transcript is
+// the count of ops before it, and its cell the start cell plus the moves
+// before it: prefix sums over the trace.  A block takes one pair.  Pass
+// 1 sums the ops and moves of the whole trace (popcounts of a byte's low
+// and high op bits), which decides the row's length and whether it is
+// sound.  Pass 2 replays the trace in rounds of one byte row a thread:
+// a block-wide exclusive scan of the round's counts gives each thread
+// its output offset and cell, carried from round to round.  Neighbouring
+// threads hold neighbouring rows, so a warp's letters and output bytes
+// are neighbours too and its loads and stores take a few sectors each;
+// the next round's byte is loaded before this round's scan.  The block's
+// size follows the trace's length (ops/compact.py plan), so a batch of
+// short rows runs a few rounds a pair and a genome-long row a few
+// hundred rounds of 1024 rows.  Bounds are held on the card: a live pair
+// whose cursor or replay would leave [0, s_len] x [0, t_len], or whose
+// transcript would pass its buffer row (stride - 1 bytes, the C++
+// guard), reads and writes nothing and gets length -1.  Pass 1's moves
+// of every op are walk.trace_moves', which the caller holds to the end
+// cells.
+
+
+// The op counts of a trace byte: ops, i moves (ops 1 and 3: bit 0 set),
+// j moves (ops 1 and 2: bits 0 and 1 differ)
+__device__ __forceinline__ void count_ops(unsigned byte, int* c) {
+    const unsigned l = byte & 0x55u, h = (byte >> 1) & 0x55u;
+    c[0] += __popc(l | h);
+    c[1] += __popc(l);
+    c[2] += __popc(l ^ h);
+}
+
+// Exclusive prefix sums of v over the block (in thread order), in place;
+// tot gets the block's totals.  blockDim.x is a multiple of 32.  `sh` is
+// read after the last barrier: a caller scanning again before another
+// barrier passes the other of two buffers.
+template <int N>
+__device__ void scan_block(int (&v)[N], int (&tot)[N], int (*sh)[N]) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    int inc[N];
+    for (int k = 0; k < N; ++k) inc[k] = v[k];
+    for (int o = 1; o < 32; o <<= 1)
+        for (int k = 0; k < N; ++k) {
+            const int u = __shfl_up_sync(FULL, inc[k], o);
+            if (lane >= o) inc[k] += u;
+        }
+    if (lane == 31)
+        for (int k = 0; k < N; ++k) sh[warp][k] = inc[k];
+    __syncthreads();
+    if (warp == 0) {
+        int w[N];
+        for (int k = 0; k < N; ++k) w[k] = lane < warps ? sh[lane][k] : 0;
+        for (int o = 1; o < 32; o <<= 1)
+            for (int k = 0; k < N; ++k) {
+                const int u = __shfl_up_sync(FULL, w[k], o);
+                if (lane >= o) w[k] += u;
+            }
+        if (lane < warps)
+            for (int k = 0; k < N; ++k) sh[lane][k] = w[k];
+    }
+    __syncthreads();
+    for (int k = 0; k < N; ++k) {
+        v[k] = (warp ? sh[warp - 1][k] : 0) + inc[k] - v[k];
+        tot[k] = sh[warps - 1][k];
+    }
+}
+
+__global__ void compact_kernel(const uint8_t* __restrict__ trace, int TRb,
+                               int B2, const int8_t* __restrict__ s, int LS,
+                               const int8_t* __restrict__ t, int LT,
+                               const int32_t* __restrict__ s_lens,
+                               const int32_t* __restrict__ t_lens,
+                               const int32_t* __restrict__ fin_i,
+                               const int32_t* __restrict__ fin_j,
+                               int anchored, int stride,
+                               uint8_t* __restrict__ ops,
+                               int32_t* __restrict__ ops_len,
+                               int32_t* __restrict__ moves_i,
+                               int32_t* __restrict__ moves_j) {
+    // pass 1 scans 5 ints: the replayed ops and their i and j moves,
+    // and the i and j moves of every op; pass 2 the first three
+    __shared__ int sh1[32][5];
+    __shared__ int sh2[2][32][3];
+    const int b = blockIdx.x, T = blockDim.x, tid = threadIdx.x;
+    const uint8_t* col = trace + (size_t)(b & 1) * TRb * B2 + (b >> 1);
+    const int I0 = fin_i[b], J0 = fin_j[b];
+    const int sl = min(s_lens[b], LS), tl = min(t_lens[b], LT);
+    const bool live = I0 >= 0 && J0 >= 0;
+    const bool inside = live && I0 <= sl && J0 <= tl;
+    // the first replayed antidiagonal (past the trace when none is), its
+    // byte row and the mask of that row's replayed ops
+    const int a0 = inside ? I0 + J0 : 4 * TRb;
+    const int r0 = a0 >> 2;
+    const unsigned m0 = 0xffu << (2 * (a0 & 3));
+
+    // pass 1: the replayed ops and moves, and the moves of every op
+    int v[5] = {0, 0, 0, 0, 0};
+    for (int r = tid; r < TRb; r += T) {
+        const unsigned byte = col[(size_t)r * B2];
+        int all[3] = {0, 0, 0};
+        count_ops(byte, all);
+        v[3] += all[1];
+        v[4] += all[2];
+        if (r >= r0) count_ops(r == r0 ? byte & m0 : byte, v);
+    }
+    int tot[5];
+    scan_block(v, tot, sh1);
+    const int pre = (anchored && inside) ? I0 + J0 : 0;
+    const long len = (long)pre + tot[0];
+    const bool bad = live && (!inside || I0 + tot[1] > sl
+                              || J0 + tot[2] > tl || len > stride - 1);
+    if (tid == 0) {
+        moves_i[b] = tot[3];
+        moves_j[b] = tot[4];
+        ops_len[b] = !live ? 0 : bad ? -1 : (int)len;
+    }
+    if (!live || bad) return;
+    uint8_t* out = ops + (size_t)b * stride;
+    for (int k = tid; k < pre; k += T) out[k] = k < I0 ? 'D' : 'I';
+
+    // pass 2: rounds of T rows from r0, each thread a row, the block's
+    // ops, cell and place carried from round to round
+    const int8_t* sb = s + (size_t)b * LS;
+    const int8_t* tb = t + (size_t)b * LT;
+    int n = pre, i = I0, j = J0;
+    int r = r0 + tid;
+    unsigned next = r < TRb ? col[(size_t)r * B2] : 0;
+    for (int round = 0; n < len; ++round, r += T) {
+        unsigned byte = next;
+        next = r + T < TRb ? col[(size_t)(r + T) * B2] : 0;
+        if (r == r0) byte &= m0;
+        int c[3] = {0, 0, 0}, sum[3];
+        count_ops(byte, c);
+        scan_block(c, sum, sh2[round & 1]);
+        int k = n + c[0], ii = i + c[1], jj = j + c[2];
+        while (byte) {
+            const int at = (__ffs(byte) - 1) & ~1;
+            const unsigned op = (byte >> at) & 3u;
+            byte &= ~(3u << at);
+            if (op == 1) {
+                out[k++] = sb[ii] == tb[jj] ? 'M' : 'S';
+                ++ii;
+                ++jj;
+            } else if (op == 2) {
+                out[k++] = 'I';
+                ++jj;
+            } else {
+                out[k++] = 'D';
+                ++ii;
+            }
+        }
+        n += sum[0];
+        i += sum[1];
+        j += sum[2];
+    }
+}
+
 }  // namespace
 
 extern "C" const char* bst_cuda_error_string(int code) {
@@ -255,5 +437,36 @@ extern "C" int bst_walk(const void* dirs, const void* dminq,
         static_cast<const int32_t*>(end_j), Rp, B2, W, TRb,
         static_cast<uint8_t*>(trace), static_cast<int32_t*>(fin_i),
         static_cast<int32_t*>(fin_j));
+    return (int)cudaGetLastError();
+}
+
+// Compacts the traces of pairs [0, B) of a [2, TRb, B2] trace into
+// [B, stride] transcript bytes (ops_len, moves_i, moves_j: [B]) on
+// `stream`, a block of `threads` a pair (no synchronisation), and returns
+// cudaGetLastError().  s / t are [>= B, LS] / [>= B, LT] letter codes;
+// s_lens, t_lens, fin_i, fin_j are [>= B]; all pointers are device
+// pointers.
+extern "C" int bst_compact(const void* trace, int TRb, int B2,
+                           const void* s, int LS, const void* t, int LT,
+                           const void* s_lens, const void* t_lens,
+                           const void* fin_i, const void* fin_j,
+                           int anchored, int B, int stride, int threads,
+                           void* ops, void* ops_len, void* moves_i,
+                           void* moves_j, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (B <= 0) return 0;
+    if (B > 2 * B2 || TRb < 0 || stride < 1 || threads < 32
+        || threads > MAX_THREADS || threads % 32)
+        return (int)cudaErrorInvalidValue;
+    compact_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(trace), TRb, B2,
+        static_cast<const int8_t*>(s), LS, static_cast<const int8_t*>(t), LT,
+        static_cast<const int32_t*>(s_lens),
+        static_cast<const int32_t*>(t_lens),
+        static_cast<const int32_t*>(fin_i),
+        static_cast<const int32_t*>(fin_j), anchored, stride,
+        static_cast<uint8_t*>(ops), static_cast<int32_t*>(ops_len),
+        static_cast<int32_t*>(moves_i), static_cast<int32_t*>(moves_j));
     return (int)cudaGetLastError();
 }

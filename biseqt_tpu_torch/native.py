@@ -230,8 +230,12 @@ def traceback(dirs, dmax, s, t, end_i, end_j, mode_flags):
 
 
 def _decode(ops_buf, ops_len):
-    return [ops_buf[b, : ops_len[b]].tobytes().decode("ascii")
-            for b in range(ops_buf.shape[0])]
+    """Row b's first ``ops_len[b]`` bytes of ``ops_buf`` [B, stride] as an
+    ASCII str, each read in place from one flat view of the buffer."""
+    flat = memoryview(np.ascontiguousarray(ops_buf)).cast("B")
+    stride = ops_buf.shape[1]
+    return [str(flat[b * stride: b * stride + n], "ascii")
+            for b, n in enumerate(np.asarray(ops_len).tolist())]
 
 
 def traceback_batch(dirs, dmax, s_codes, t_codes, s_lens, t_lens, end_i,
@@ -444,14 +448,24 @@ def _replay_inputs(trace, fin_i, fin_j, s_codes, t_codes, s_lens, t_lens,
     if 2 * trace.shape[2] < B or fin_i.shape[0] < B or fin_j.shape[0] < B:
         raise ValueError("trace %s / cursors too small for %d pairs"
                          % (trace.shape, B))
-    s_lens = np.asarray(s_lens, np.int64)[:B]
-    t_lens = np.asarray(t_lens, np.int64)[:B]
-    fi, fj = fin_i[:B], fin_j[:B]
     if moves is None:
         import torch
         from .ops.walk import trace_moves
 
         moves = [m.numpy() for m in trace_moves(torch.from_numpy(trace), B)]
+    _check_moves(fin_i, fin_j, moves, s_lens, t_lens, B)
+    return s_codes, t_codes, fin_i, fin_j
+
+
+def _check_moves(fin_i, fin_j, moves, s_lens, t_lens, B):
+    """Raise ``ValueError`` unless every live pair of the first ``B``
+    (``fin >= 0``) replays inside its matrix: ``fin_i <= s_len``,
+    ``fin_j <= t_len``, ``fin_i + di <= s_len`` and ``fin_j + dj <=
+    t_len``, where ``moves = (di, dj)`` are its trace's moves."""
+    s_lens = np.asarray(s_lens, np.int64)[:B]
+    t_lens = np.asarray(t_lens, np.int64)[:B]
+    fi = np.asarray(fin_i, np.int64)[:B]
+    fj = np.asarray(fin_j, np.int64)[:B]
     di, dj = (np.asarray(m, np.int64)[:B] for m in moves)
     if di.shape[0] < B or dj.shape[0] < B:
         raise ValueError("moves hold %d / %d pairs, not %d"
@@ -471,7 +485,6 @@ def _replay_inputs(trace, fin_i, fin_j, s_codes, t_codes, s_lens, t_lens,
             "(from (%s, %s) by (%s, %s) moves)"
             % (bad[:8].tolist(), fi[bad[:8]].tolist(), fj[bad[:8]].tolist(),
                di[bad[:8]].tolist(), dj[bad[:8]].tolist()))
-    return s_codes, t_codes, fin_i, fin_j
 
 
 def _replayed(name, rc, ops_buf, ops_len, fin_i, fin_j, mode_flags):

@@ -478,20 +478,24 @@ def _finish(g, Ma, Mb, Aa, Ab, dirs, flags: ModeFlags, with_dirs: bool):
 
 
 def _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst, go, ge,
-         flags, w_eff, with_dirs, r_chunk, device):
+         flags, w_eff, with_dirs, r_chunk, device, return_codes=False):
     with Phase("dp_ad.inputs"):
         g = _geometry(s_codes, t_codes, s_lens, t_lens, dmin, w_eff, W=W,
                       subst=subst, go=go, ge=ge, r_chunk=r_chunk,
                       device=device)
     if g["B"] == 0:
         raise ValueError("empty batch")
-    return _finish(g, *engine(g, flags, with_dirs), flags, with_dirs)
+    res = _finish(g, *engine(g, flags, with_dirs), flags, with_dirs)
+    if return_codes:
+        return res, tuple(g[k] for k in ("s_codes", "t_codes", "s_lens_in",
+                                         "t_lens_in"))
+    return res
 
 
 def banded_dp_ad(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
                  go: float, ge: float, flags: ModeFlags, w_eff=None,
                  with_dirs: bool = False, r_chunk: int = 128,
-                 device="cuda") -> DPResult:
+                 device="cuda", return_codes: bool = False) -> DPResult:
     """Antidiagonal dual-pair banded DP over a batch of pairs.
 
     Inputs (numpy arrays, or tensors already on ``device``):
@@ -506,7 +510,11 @@ def banded_dp_ad(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
     Returns :class:`DPResult`: ``score`` f32 [B]; without ``with_dirs``
     ``end_i`` / ``end_j`` are -1 sentinels and ``dirs`` is empty; with
     it, the end cells and the dirs plane ``[Apad // 2, B2, W]`` uint8
-    (layout: module docstring).
+    (layout: module docstring).  ``return_codes`` returns ``(result,
+    codes)`` instead, where ``codes`` are the inputs as the kernel read
+    them on ``device``: ``(s_codes [Bp, LS], t_codes [Bp, LT], s_lens
+    [B], t_lens [B])`` (``Bp``: B rounded up to whole plane rows), for
+    later work on the card that reads them without another copy.
 
     On a CUDA ``device`` this launches the kernel of ``csrc/dp_ad.cu``
     (built on first use) and raises if it cannot; on the CPU it runs
@@ -515,7 +523,8 @@ def banded_dp_ad(s_codes, t_codes, s_lens, t_lens, dmin, *, W: int, subst,
     device = resolve_device(device)
     engine = _sweep_cuda if device.type == "cuda" else _sweep_plain
     return _run(engine, s_codes, t_codes, s_lens, t_lens, dmin, W, subst,
-                go, ge, flags, w_eff, with_dirs, r_chunk, device)
+                go, ge, flags, w_eff, with_dirs, r_chunk, device,
+                return_codes)
 
 
 def banded_dp_ad_reference(s_codes, t_codes, s_lens, t_lens, dmin, *,

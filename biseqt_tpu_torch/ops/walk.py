@@ -163,9 +163,14 @@ def _walk_cuda(dirs, dq, ei, ej, Rp, B2, W):
 
 
 def _declare(lib):
+    """The entry points of ``csrc/walk.cu``: the walk and the compaction
+    of its trace (:mod:`.compact`), one library."""
     v, i = ctypes.c_void_p, ctypes.c_int
     lib.bst_walk.restype = i
     lib.bst_walk.argtypes = [v, v, v, v, i, i, i, i, v, v, v, i, v]
+    lib.bst_compact.restype = i
+    lib.bst_compact.argtypes = [v, i, i, v, i, v, i, v, v, v, v, i, i, i, i,
+                                v, v, v, v, i, v]
 
 
 def _run(engine, dirs, dminq, end_i, end_j, W, device):

@@ -11,11 +11,13 @@ of three routes:
 
 * ``None`` (the default) leaves it to ``device``: the antidiagonal DP
   kernel (:mod:`.ops.dp_ad`) on a card, its plain twin on the CPU.
-  With transcripts each launch writes the direction plane, the walk
+  With transcripts each launch writes the direction plane and the walk
   kernel (:mod:`.ops.walk`, or its twin) turns it into a 2-bit op
-  trace on the device, and the C++ host tier compacts the trace into
-  MSID transcripts (:func:`.native.compact_sweep_ops_t`).  This is the
-  JAX package's route on its accelerator.
+  trace on the device.  On a card the compaction kernel
+  (:mod:`.ops.compact`) then replays the trace into MSID transcript
+  bytes there, and only those bytes cross to the host; on the CPU the
+  C++ host tier compacts the trace (:func:`.native.compact_sweep_ops_t`),
+  as on the JAX package's route on its accelerator.
 * ``True`` asks for the same kernels, and so for a CUDA ``device``.
 * ``False`` is the JAX package's row route, its default on a CPU: the
   row-wavefront engine (:func:`.ops.banded_dp.banded_dp`) over the
@@ -29,8 +31,9 @@ results can be compared exactly.  The per-launch cap is the card's
 (:data:`LAUNCH_BYTES`); which pairs share a launch changes no result.
 Launches are kept in flight under :data:`PIPELINE_BYTES`: each is
 dispatched without waiting for the device, and the oldest is finished
-(its results copied to the host, checked and compacted) while later
-ones run, in order, so the output does not depend on the budget.
+(its results copied to the host, checked, and compacted or decoded)
+while later ones run, in order, so the output does not depend on the
+budget.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from . import native
 from .blot import WordBlot
+from .ops import compact
 from .ops.banded_dp import ModeFlags, banded_dp, resolve_device
 from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
@@ -293,27 +297,40 @@ def _dispatch(idxs, x, W, dp_kw, with_transcripts, route, device):
     """Queue one launch on the device, then the copies of what
     :func:`_finish` reads to pinned host buffers, then an event; nothing
     here waits for the device.  ``route``: ``"walk"``, K1 and with
-    transcripts the walk kernel and its replay guard; ``"plane"``, K1
-    and its plane; ``"row"``, the row engine and its first ``n`` pairs'
-    byte plane."""
+    transcripts the walk kernel, its replay guard and the compaction of
+    its trace on the device; ``"trace"``, the same with the trace itself
+    copied (for the C++ tier); ``"plane"``, K1 and its plane; ``"row"``,
+    the row engine and its first ``n`` pairs' byte plane."""
     n = len(idxs)
-    engine = banded_dp if route == "row" else banded_dp_ad
-    res = engine(x["s_codes"], x["t_codes"], x["s_lens"], x["t_lens"],
-                 x["dmin"], W=W, w_eff=x["w_eff"],
-                 with_dirs=with_transcripts, device=device, **dp_kw)
+    args = (x["s_codes"], x["t_codes"], x["s_lens"], x["t_lens"], x["dmin"])
+    kw = dict(W=W, w_eff=x["w_eff"], with_dirs=with_transcripts,
+              device=device, **dp_kw)
+    if route == "row":
+        res = banded_dp(*args, **kw)
+    else:
+        res, codes = banded_dp_ad(*args, return_codes=True, **kw)
     host = [res.score[:n]]
-    if with_transcripts and route == "walk":
+    if with_transcripts and route in ("walk", "trace"):
         # padding pairs are skipped by the walk (-1 end cells)
         real = torch.arange(len(x["dmin"]), device=device) < n
         ei = torch.where(real, res.end_i, -1)
         ej = torch.where(real, res.end_j, -1)
         trace, fi, fj = traceback_walk(res.dirs, x["dminq"], ei, ej, W=W,
                                        device=device)
+        if route == "walk":
+            # the transcripts, their lengths and the trace's moves, from
+            # the letters K1 read on the device
+            ops, ops_len, di, dj = compact.compact(trace, fi, fj, *codes,
+                                                   dp_kw["flags"])
+            walked, extra = ops[:n], [ops_len]
+        else:
+            di, dj = trace_moves(trace, len(ei))
+            walked, extra = trace, []
         # every walk must move from its end cell to its start cell by its
         # trace's ops: checked on the device, copied with the cursors
-        di, dj = trace_moves(trace, len(ei))
         bad = ((ei - fi) != di) | ((ej - fj) != dj)
-        host += [torch.stack([fi, fj, di, dj, bad.to(torch.int32)]), trace]
+        host += [torch.stack([fi, fj, di, dj, bad.to(torch.int32), *extra]),
+                 walked]
     elif with_transcripts:
         plane = res.dirs[:n] if route == "row" else res.dirs
         host += [torch.stack([res.end_i[:n], res.end_j[:n]]), plane]
@@ -327,8 +344,9 @@ def _dispatch(idxs, x, W, dp_kw, with_transcripts, route, device):
 
 def _finish(launch, flags, with_transcripts):
     """Wait for a dispatched launch and return its scores and, with
-    transcripts, its ``(ops, start_i, start_j)`` compacted or walked by
-    the C++ tier; a walk that does not lead from its end cell raises."""
+    transcripts, its ``(ops, start_i, start_j)``: decoded from the
+    device's compaction, or compacted or walked by the C++ tier; a walk
+    that does not lead from its end cell raises."""
     with Phase("pipeline.wait"):
         if launch.event is not None:
             launch.event.synchronize()
@@ -336,7 +354,8 @@ def _finish(launch, flags, with_transcripts):
     score = launch.host[0].numpy()
     if not with_transcripts:
         return score, None
-    # the walk's cursors and trace, or the end cells and the plane
+    # the walk's cursors and transcript bytes or trace, or the end cells
+    # and the plane
     cursors, walked = (h.numpy() for h in launch.host[1:])
     codes = (x["s_codes"][:n], x["t_codes"][:n], x["s_lens"][:n],
              x["t_lens"][:n])
@@ -349,15 +368,20 @@ def _finish(launch, flags, with_transcripts):
         if launch.route == "plane":
             return score, native.traceback_batch_ad(
                 walked, x["dminq"][:n], *codes, *cursors, flags)
-        fi, fj, di, dj, bad = cursors
+        fi, fj, di, dj, bad = cursors[:5]
         if bad.any():
             raise RuntimeError(
                 "the walk's trace does not lead from the end cells to its"
                 " final cursors for pairs %s of the launch of rows %s"
                 % (np.nonzero(bad)[0][:8].tolist(),
                    list(launch.idxs)[:8]))
-        return score, native.compact_sweep_ops_t(
-            walked, fi, fj, *codes, flags, moves=(di[:n], dj[:n]))
+        if launch.route == "trace":
+            return score, native.compact_sweep_ops_t(
+                walked, fi, fj, *codes, flags, moves=(di[:n], dj[:n]))
+        # the transcripts compacted on the device: checked and decoded
+        return score, compact.transcripts(
+            walked, cursors[5][:n], fi[:n], fj[:n], (di[:n], dj[:n]),
+            codes[2], codes[3], flags)
 
 
 def extend_segments(S, T, segments: List[Dict], *, subst=None,
@@ -406,9 +430,13 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     s_arr = S.to_array()
     t_arr = T.to_array()
 
-    if with_transcripts:
-        # every transcript is compacted by the C++ tier: fail before any
-        # launch when it is missing
+    # on a card the walk's trace is compacted there, on the CPU by the C++
+    # tier
+    route = ("row" if row else "plane" if not device_walk
+             else "walk" if device.type == "cuda" else "trace")
+    if with_transcripts and route != "walk":
+        # the C++ tier walks or compacts these routes' transcripts: fail
+        # before any launch when it is missing
         if not native.available():
             raise RuntimeError(
                 "extend_segments(with_transcripts=True) compacts op "
@@ -421,7 +449,6 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
             segments, len(S), len(T), with_transcripts,
             pad_radius=pad_radius, pad_a=pad_a, dirs_budget=_dirs_budget,
             row=row)
-    route = "row" if row else "walk" if device_walk else "plane"
     B = len(cut)
     # local mode: the alignment starts and ends wherever the homology does
     flags = ModeFlags(local_start=True, local_end=True)

@@ -2703,8 +2703,6 @@ def wide_alone():
 
 def main():
     import torch
-def main():
-    import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a card")
@@ -2735,7 +2733,7 @@ def run(recall_reads, band_rows):
     from biseqt_tpu_torch import pipeline, pw
     from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
     from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
-    from biseqt_tpu_torch.ops import dp_ad, dp_row, walk
+    from biseqt_tpu_torch.ops import compact, dp_ad, dp_row, walk
     from biseqt_tpu_torch.ops.banded_dp import ModeFlags, traceback_path
     from biseqt_tpu_torch.profiling import (FP32_OPS_PER_S, INT32_OPS_PER_S,
                                             bound_ms, cuda_ms, cuobjdump_sass,
@@ -2794,7 +2792,7 @@ def run(recall_reads, band_rows):
     torch.cuda.synchronize()
 
     # -- 2. the main path, counted ---------------------------------------
-    n0 = launched("dp_ad", "walk")
+    n0 = launched("dp_ad", "walk", "compact")
     t0 = time.perf_counter()
     out = pipeline.extend_segments(S, T, segments, **kw)
     e2e = time.perf_counter() - t0
@@ -2899,6 +2897,38 @@ def run(recall_reads, band_rows):
     print("transcripts == C++ host walker's on the full launch (%d pairs)"
           % n)
 
+    # the compaction kernel on the same trace, from the codes on the card:
+    # its twin's bytes, lengths and moves, and decoded the C++ tier's
+    codes = (on["s_codes"], on["t_codes"], on["s_lens"], on["t_lens"])
+    c_got = compact.compact(*w_got, *codes, flags)
+    t_plain = time.perf_counter()
+    c_want = compact.compact_reference(*w_got, *codes, flags)
+    torch.cuda.synchronize()
+    compact_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    held = (torch.arange(c_got[0].shape[1], device=dev)
+            < c_got[1][:, None])
+    if not (all(torch.equal(a, b) for a, b in zip(c_got[1:], c_want[1:]))
+            and torch.equal(c_got[0][held], c_want[0][held])):
+        fail("compaction kernel bytes / lengths / moves differ from the"
+             " plain twin")
+    c_host = [v.cpu().numpy() for v in c_got]
+    t0 = time.perf_counter()
+    c_ops, c_si, c_sj = compact.transcripts(
+        c_host[0][:n], c_host[1][:n], fi[:n], fj[:n],
+        (c_host[2][:n], c_host[3][:n]), x["s_lens"][:n], x["t_lens"][:n],
+        flags)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if c_ops != ops or not (np.array_equal(c_si, si)
+                            and np.array_equal(c_sj, sj)):
+        fail("compaction kernel transcripts differ from the C++ tier's")
+    t0 = time.perf_counter()
+    native.compact_sweep_ops_t(tr, fi, fj, x["s_codes"][:n],
+                               x["t_codes"][:n], x["s_lens"][:n],
+                               x["t_lens"][:n], flags)
+    compact_cpp_ms = (time.perf_counter() - t0) * 1e3
+    print("compact kernel == plain twin == C++ compactor on the full"
+          " launch (%d pairs)" % n)
+
     # -- 5. kernel times at the launch's shape, beside their bounds -------
     dp_ms = cuda_ms(lambda: dp_ad.banded_dp_ad(*args, **dkw), 3)
     walk_ms = cuda_ms(lambda: walk.traceback_walk(
@@ -2935,6 +2965,15 @@ def run(recall_reads, band_rows):
     walk_work = (reads + nbytes(on["dminq"], ei, ej, *w_got),
                  WALK_OPS_PER_STEP * reads)
     walk_bound, walk_bound_by = bound_ms(*walk_work, INT32_OPS_PER_S)
+    compact_ms = cuda_ms(lambda: compact.compact(*w_got, *codes, flags), 3)
+    # the compaction reads the trace, cursors and lengths once and a pair
+    # of letters a diagonal op, and writes each transcript byte, length
+    # and move once
+    diag = int(sum(((tr32 >> s) & 3 == 1).sum() for s in (0, 2, 4, 6)))
+    compact_work = (nbytes(*w_got, *codes[2:], *c_got[1:]) + 2 * diag
+                    + int(c_got[1].clamp(min=0).sum()), 0)
+    compact_bound, compact_bound_by = bound_ms(*compact_work,
+                                               INT32_OPS_PER_S)
     print("dp_ad: kernel %.3f ms (%.1f GCUPS on %d band cells), plain %.0f"
           " ms; bound %.4f ms (%s; %.1f MB, %.2f G operations)"
           % (dp_ms, launch_cells / dp_ms / 1e6, launch_cells, dp_plain_ms,
@@ -2946,6 +2985,12 @@ def run(recall_reads, band_rows):
     print("replay guard (trace moves against end cells, on the card):"
           " %.4f ms per launch, %.4f ms replayed from a CUDA graph"
           % (guard_ms, guard_device_ms))
+    print("compact: kernel %.3f ms (%d threads a pair), plain %.0f ms, C++"
+          " tier on the host %.1f ms, host decode %.1f ms; bound %.4f ms"
+          " (%s; %.1f MB)"
+          % (compact_ms, compact.plan(w_got[0].shape[1]),
+             compact_plain_ms, compact_cpp_ms, decode_ms, compact_bound,
+             compact_bound_by, compact_work[0] / 1e6))
 
     # K1 against the plane rows in flight: the full launch's inputs
     # tiled or sliced to each row count, at the same LS, LT, W and Apad
@@ -3369,6 +3414,14 @@ def run(recall_reads, band_rows):
                                   experiments["launches"]["walk"]},
          "discover_and_extend": genome["walk"],
          "map_reads": mapping["walk"]},
+        # replaces no TPU kernel: the JAX package compacts on the host
+        {"name": "compact", "route": "cuda",
+         "source": "biseqt_tpu_torch/csrc/walk.cu",
+         "replaces": None, "launches": counts["compact"],
+         "max_abs_err": 0.0, "ms": compact_ms, "plain_ms": compact_plain_ms,
+         "bound_ms": compact_bound, "bound_by": compact_bound_by,
+         "library_ms": None, "cpp_ms": compact_cpp_ms,
+         "decode_ms": decode_ms},
         {"name": "dp_row", "route": "cuda",
          "source": "biseqt_tpu_torch/csrc/dp_row.cu",
          "replaces": "biseqt_tpu/ops/pallas_dp.py:54",

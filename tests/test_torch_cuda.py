@@ -21,10 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from biseqt_tpu_torch import blot, profiling, pw
+from biseqt_tpu_torch import blot, native, pipeline, profiling, pw
 from biseqt_tpu_torch.experiments import i16_probe, transpose_probe
 from biseqt_tpu_torch.matrices import BLOSUM62, protein_alphabet
-from biseqt_tpu_torch.ops import dp_ad, dp_row, steps, walk
+from biseqt_tpu_torch.ops import compact, dp_ad, dp_row, steps, walk
 from biseqt_tpu_torch.ops.banded_dp import ModeFlags
 from biseqt_tpu_torch.pipeline import (discover_and_extend, extend_segments,
                                        extension_plan)
@@ -53,7 +53,8 @@ CLUSTER_WS = [6144, 8192, 12288, 16384, 24576, 32768, 49152, 65536]
 
 
 # the hand-written kernels, each counted as ``launches.<kernel>``
-KERNELS = ("dp_ad", "walk", "dp_row", "transpose_probe", "i16_probe")
+KERNELS = ("dp_ad", "walk", "compact", "dp_row", "transpose_probe",
+           "i16_probe")
 
 
 def launches(*kernels):
@@ -443,6 +444,151 @@ def test_walk_kernel_matches_plain(rng, card, kind, B2, Rp, W):
         assert int((di + dj).max()) > 2 * walk.DEPTH   # crosses windows
 
 
+def random_traces(rng, B2, B, rows, dense):
+    """Random op bytes (``dense``: share of nonzero bytes), the last byte
+    row of every column full so that each replay ends at the plane's last
+    antidiagonal, cursors near the origin, -1 skips, and lengths that
+    hold every replay: ``(trace, fin_i, fin_j, s_codes, t_codes, s_lens,
+    t_lens)`` as numpy, the C++ compactor's and the compaction op's
+    inputs."""
+    tr = rng.integers(0, 256, (2, rows, B2)).astype(np.uint8)
+    tr[rng.random(tr.shape) >= dense] = 0
+    tr[:, -1, :] = rng.integers(0, 4, (2, B2)) * 0x55 | 0x40
+    L = 4 * rows + 40
+    ss = rng.integers(0, 4, (B, L)).astype(np.int8)
+    ts = rng.integers(0, 4, (B, L + 3)).astype(np.int8)
+    fi = rng.integers(0, 2 * rows, B).astype(np.int32)
+    fj = rng.integers(0, 2 * rows, B).astype(np.int32)
+    fi[4::5] = -1
+    fj[3::7] = -1
+    s_lens = rng.integers(L - 10, L + 1, B).astype(np.int32)
+    t_lens = rng.integers(L - 10, L + 4, B).astype(np.int32)
+    return tr, fi, fj, ss, ts, s_lens, t_lens
+
+
+def _homologous_launch(rng, B, L, LS, W):
+    """A launch's inputs of ``B`` homologous pairs about ``L`` letters
+    long (10% substitutions, a 5-letter deletion and a 4-letter insertion
+    in T), padded to ``LS`` letters, the band ``W`` lanes wide around the
+    main diagonal: ``(s_codes, t_codes, s_lens, t_lens, dmin)``."""
+    ss = np.zeros((B, LS), np.int8)
+    ts = np.zeros((B, LS), np.int8)
+    s_lens = rng.integers(L - L // 10, L + 1, B).astype(np.int32)
+    t_lens = np.zeros(B, np.int32)
+    for b, n in enumerate(s_lens):
+        s = rng.integers(0, 4, n)
+        t = s.copy()
+        hit = rng.random(n) < 0.1
+        t[hit] = (t[hit] + 1 + rng.integers(0, 3, hit.sum())) % 4
+        t = np.concatenate([t[:n // 3], t[n // 3 + 5: 2 * n // 3],
+                            rng.integers(0, 4, 4), t[2 * n // 3:]])
+        ss[b, :n] = s
+        ts[b, :len(t)] = t
+        t_lens[b] = len(t)
+    dmin = np.full(B, -(W // 2), np.int32)
+    return ss, ts, s_lens, t_lens, dmin
+
+
+def _assert_compactions_equal(got, want):
+    """The kernel's and the twin's outputs: lengths and moves equal, and
+    each row's bytes up to its length (the kernel leaves the rest)."""
+    ops, ops_len, di, dj = got
+    assert torch.equal(ops_len, want[1])
+    assert torch.equal(di, want[2]) and torch.equal(dj, want[3])
+    held = (torch.arange(ops.shape[1], device=ops.device)
+            < ops_len[:, None])
+    assert torch.equal(ops[held], want[0][held])
+
+
+@pytest.mark.parametrize("B,L,LS,W,flags", [
+    (2048, 10_500, 12288, 256, FLAG_CASES[0]),
+    (2048, 10_500, 12288, 256, FLAG_CASES[1]),
+    (3, 160_000, 196_608, 1024, FLAG_CASES[0])])
+def test_compact_kernel_matches_twin_and_cpp(rng, card, B, L, LS, W, flags):
+    """The compaction of real walks' traces at the batched extension's
+    shape (2048 pairs of ~10 kbp, W 256, local and global) and at a
+    genome window's (3 rows of ~384 k antidiagonals, W 1024): the kernel
+    equals its twin on the card (lengths, moves, bytes) and, decoded,
+    the C++ compactor (transcripts and start cells)."""
+    ss, ts, s_lens, t_lens, dmin = _homologous_launch(rng, B, L, LS, W)
+    f = ModeFlags(**flags)
+    res, codes = dp_ad.banded_dp_ad(
+        ss, ts, s_lens, t_lens, dmin, W=W, subst=UNIT, go=-3.0, ge=-1.0,
+        flags=f, with_dirs=True, device=card, return_codes=True)
+    dminq = dp_ad.parity_adjusted_dmin(dmin, np.arange(B, dtype=np.int32)
+                                       % 2)
+    trace, fi, fj = walk.traceback_walk(res.dirs, dminq, res.end_i,
+                                        res.end_j, W=W, device=card)
+    assert 4 * trace.shape[1] >= 2 * L
+    n0 = launches("compact")
+    got = compact.compact(trace, fi, fj, *codes, f)
+    assert launches("compact") == n0 + 1
+    want = compact.compact_reference(trace, fi, fj, *codes, f)
+    _assert_compactions_equal(got, want)
+    moves = walk.trace_moves(trace, B)
+    assert torch.equal(got[2], moves[0]) and torch.equal(got[3], moves[1])
+    host = [x.cpu().numpy() for x in got]
+    tr, fi, fj = (x.cpu().numpy() for x in (trace, fi, fj))
+    ops = compact.transcripts(host[0], host[1], fi, fj, host[2:], s_lens,
+                              t_lens, f)
+    cpp = native.compact_sweep_ops_t(tr, fi, fj, ss, ts, s_lens, t_lens, f)
+    assert ops[0] == cpp[0]
+    np.testing.assert_array_equal(ops[1], cpp[1])
+    np.testing.assert_array_equal(ops[2], cpp[2])
+    assert min(map(len, ops[0])) > L * 0.8
+
+
+@pytest.mark.parametrize("B2,B,rows,dense", [
+    (1, 1, 1, 1.0), (4, 7, 9, 0.5), (13, 25, 40, 0.9), (6, 12, 3, 0.2),
+    (3, 5, 8192, 0.7), (2, 3, 40_000, 0.3), (40, 79, 1500, 0.05)])
+@pytest.mark.parametrize("flags", FLAG_CASES[:3])
+def test_compact_kernel_on_random_traces(rng, card, flags, B2, B, rows,
+                                         dense):
+    """Random op bytes at block sizes from one warp to 1024 threads (one
+    round to 40), replays that end at the plane's last antidiagonal and
+    skipped pairs: kernel == twin == the C++ compactor."""
+    tr, fi, fj, ss, ts, s_lens, t_lens = random_traces(rng, B2, B, rows,
+                                                       dense)
+    on = [torch.as_tensor(x, device=card)
+          for x in (tr, fi, fj, ss, ts, s_lens, t_lens)]
+    f = ModeFlags(**flags)
+    got = compact.compact(*on, f)
+    _assert_compactions_equal(got, compact.compact_reference(*on, f))
+    host = [x.cpu().numpy() for x in got]
+    ops = compact.transcripts(host[0], host[1], fi, fj, host[2:], s_lens,
+                              t_lens, f)
+    cpp = native.compact_sweep_ops_t(tr, fi, fj, ss, ts, s_lens, t_lens, f)
+    assert ops[0] == cpp[0]
+    np.testing.assert_array_equal(ops[1], cpp[1])
+    np.testing.assert_array_equal(ops[2], cpp[2])
+
+
+def test_compact_kernel_is_bad_row_safe(rng, card):
+    """Cursors outside their pair's matrix and replays that would leave
+    it (a pair whose lengths are cut below its moves) get length -1 on
+    the card; the other rows are the twin's, and the host raises as the
+    C++ binding does."""
+    tr, fi, fj, ss, ts, s_lens, t_lens = random_traces(rng, 8, 16, 64, 0.8)
+    f = ModeFlags(local_start=True)
+    good = native.compact_sweep_ops_t(tr, fi, fj, ss, ts, s_lens, t_lens, f)
+    fi[1], fj[2], fi[6] = s_lens[1] + 1, 2 ** 31 - 1, 10 ** 6
+    t_lens[3] = 2
+    fi[3], fj[3] = 0, 0
+    on = [torch.as_tensor(x, device=card)
+          for x in (tr, fi, fj, ss, ts, s_lens, t_lens)]
+    got = compact.compact(*on, f)
+    _assert_compactions_equal(got, compact.compact_reference(*on, f))
+    ops_len = got[1].cpu().numpy()
+    assert ops_len[[1, 2, 3, 6]].tolist() == [-1] * 4
+    ops = got[0].cpu().numpy()
+    for b in set(range(16)) - {1, 2, 3, 6}:
+        assert ops[b, :ops_len[b]].tobytes().decode() == good[0][b]
+    host = [x.cpu().numpy() for x in got]
+    with pytest.raises(ValueError, match="outside their pair"):
+        compact.transcripts(host[0], host[1], fi, fj, host[2:], s_lens,
+                            t_lens, f)
+
+
 def test_extend_segments_card_matches_cpu(rng, card):
     """The whole slice on the card equals the plain twins on the CPU:
     scores, transcripts, start cells and source indices."""
@@ -466,20 +612,21 @@ def test_extend_segments_card_matches_cpu(rng, card):
     kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
               _r_chunk=16)
     n_plan = len(extension_plan(segments, len(S), len(T), True)[3])
-    n_dp, n_walk = launches("dp_ad"), launches("walk")
+    n = {k: launches(k) for k in ("dp_ad", "walk", "compact")}
     got = extend_segments(S, T, segments, device=card, **kw)
-    assert launches("dp_ad") - n_dp == launches("walk") - n_walk == n_plan
+    assert {k: launches(k) - v for k, v in n.items()} == {
+        "dp_ad": n_plan, "walk": n_plan, "compact": n_plan}
     want = extend_segments(S, T, segments, device="cpu", **kw)
     assert got == want
     assert all(seg["score"] > 150 and len(seg["transcript"]) > 250
                for seg in got)
-    # the host walk over the card's plane: K1 launched, the walk kernel
-    # not, and the transcripts the device walk's
-    n_dp, n_walk = launches("dp_ad"), launches("walk")
+    # the host walk over the card's plane: K1 launched, the walk and
+    # compaction kernels not, and the transcripts the device walk's
+    n_dp, n_walk = launches("dp_ad"), launches("walk", "compact")
     host = extend_segments(S, T, segments, device=card, use_pallas=True,
                            device_walk=False, **kw)
     assert launches("dp_ad") - n_dp == n_plan
-    assert launches("walk") == n_walk
+    assert launches("walk", "compact") == n_walk
     assert host == got
     # the row route on the card: the row engine there, no kernel
     # launched, equal to the same route on the CPU
@@ -528,9 +675,10 @@ def _counted_since(before):
 
 
 def test_counts_and_ranges_of_a_call_on_the_card(rng, card, tmp_path):
-    """Extension on the card counts K1 and the walk under
-    ``pipeline.launch`` (with the results' copies to pinned memory) and
-    the inputs' copies to the card under ``dp_ad.inputs``; discovery
+    """Extension on the card counts K1, the walk and the compaction under
+    ``pipeline.launch`` (with the results' copies to pinned memory: the
+    scores, the cursors and moves, the transcript bytes) and the inputs'
+    copies to the card under ``dp_ad.inputs``; discovery
     counts its copies to pageable memory under ``seeds.fetch``,
     ``blot.grid`` and ``blot.stats``; under a profiler the spans are
     ranges beside the card's kernels."""
@@ -544,13 +692,20 @@ def test_counts_and_ranges_of_a_call_on_the_card(rng, card, tmp_path):
     assert set(got) == {"pipeline.launch", "dp_ad.inputs"}
     assert got["pipeline.launch"]["launches.dp_ad"] == 3
     assert got["pipeline.launch"]["launches.walk"] == 3
-    # per launch: the walk's band starts to the card; the scores, the
-    # cursors and the trace back to pinned memory
+    assert got["pipeline.launch"]["launches.compact"] == 3
     assert set(got["pipeline.launch"]) == {
-        "launches.dp_ad", "launches.walk", "bytes_to_card",
-        "bytes_to_host.pinned"}
-    assert got["pipeline.launch"]["bytes_to_card"] > 0
-    assert got["pipeline.launch"]["bytes_to_host.pinned"] > 3 * 4 * 5
+        "launches.dp_ad", "launches.walk", "launches.compact",
+        "bytes_to_card", "bytes_to_host.pinned"}
+    # per launch of n pairs padded to n_pad: the walk's band starts to the
+    # card (the compaction reads K1's codes there); back to pinned memory
+    # the scores, six int32 a pair (cursors, moves, the walk's check, the
+    # transcript's length) and n rows of LS + LT + 2 transcript bytes
+    plan = extension_plan(segments, len(S), len(T), True)[3]
+    pads = [pipeline._bucket(len(idxs), mini=2) for idxs, *_ in plan]
+    assert got["pipeline.launch"]["bytes_to_card"] == 4 * sum(pads)
+    assert got["pipeline.launch"]["bytes_to_host.pinned"] == sum(
+        len(idxs) * (4 + LS + LT + 2) + 24 * n_pad
+        for (idxs, LS, LT, _), n_pad in zip(plan, pads))
     assert set(got["dp_ad.inputs"]) == {"bytes_to_card"}
     codes = sum(len(S) + len(T) for _ in range(3))
     assert got["dp_ad.inputs"]["bytes_to_card"] > codes // 4
@@ -605,6 +760,35 @@ def test_extend_segments_in_flight_equals_serial_on_the_card(
     assert in_flight == serial
     assert serial == extend_segments(S, T, segments, device="cpu", **kw)
     assert all(seg["score"] > 150 for seg in serial)
+
+
+def test_walk_route_dispatch_does_not_wait_for_the_card(rng, card,
+                                                       monkeypatch):
+    """Each launch of the device walk's route (K1, the walk, its check,
+    the compaction and the copies to pinned memory) is queued without
+    waiting for the card: CUDA's sync debug mode set to raise around
+    each dispatch, three launches in flight, the output the CPU's."""
+    S, T, segments = _three_launch_plan(rng)
+    kw = dict(go_score=-3.0, ge_score=-1.0, with_transcripts=True,
+              _r_chunk=16)
+    warm = extend_segments(S, T, segments, device=card, **kw)
+    dispatch = pipeline._dispatch
+    routes = []
+
+    def without_sync(*args):
+        routes.append(args[5])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(pipeline, "_dispatch", without_sync)
+    n0 = launches("compact")
+    got = extend_segments(S, T, segments, device=card, **kw)
+    assert routes == ["walk"] * 3 and launches("compact") == n0 + 3
+    assert got == warm == extend_segments(S, T, segments, device="cpu",
+                                          **kw)
 
 
 def test_extend_segments_row_route_in_flight_on_the_card(rng, card,
