@@ -41,7 +41,7 @@ import torch
 from .kmers import as_kmer_keys_np
 from .ops import blot_stats, tables
 from .ops.banded_dp import resolve_device
-from .profiling import Phase, host_copy
+from .profiling import Phase, count, host_copy
 from .seeds import SeedIndex, SeedIndexMultiple, kmer_table_np
 from .sequence import Sequence
 
@@ -69,6 +69,7 @@ def _batched_stats(ns, areas, seglens, wordlen: int, alphabet_len: int,
     columns, rounded to float32, in one pass on ``device``.  Shared by
     the pairwise (:func:`_score_components`) and N-way paths."""
     with Phase("blot.stats"):
+        count("blot.candidates", np.size(ns))
         ns, areas, seglens = (np.float32(x) for x in (ns, areas, seglens))
         p = blot_stats.estimate_match_probability(ns, seglens, wordlen,
                                                   device=device)
@@ -491,9 +492,16 @@ class _FixedRefBase:
     ascending within a key), sorted once on ``device`` (``"cuda"`` by
     default) and copied to the host, and an adapter that dresses a
     query's seeds up as a :class:`WordBlot`-family object.  A query's
-    seeds are served on the host (packing, binary searches and a ragged
-    expansion, O(|query| + hits)); only its candidates' statistics run
-    on ``device``.
+    seeds are served on the host (packing, each window's run of the table,
+    a ragged expansion, O(|query| + hits)); only its candidates'
+    statistics run on ``device``.  Where the key space is at most
+    :attr:`DENSE_RUNS` keys a letter of the reference, each window's run
+    is looked up in a dense array of run starts by key, built once
+    (``|Σ|^w + 1`` int32: 64 MiB at DNA word 12, beside the table's 80 MB
+    at 5 Mbp): one read a window in place of two binary searches over the
+    table, whose cache misses held most of a read's serving time at a 5
+    Mbp reference and swung with the host's memory traffic.  Where the
+    key space is wider, the table is searched.
 
     Words too wide for ``ops.tables``' int32 keys (|Σ|^wordlen >= 2^31)
     are answered for references shorter than :attr:`WIDE_MAX_REF`
@@ -504,6 +512,7 @@ class _FixedRefBase:
     tier does."""
 
     WIDE_MAX_REF = 1 << 16
+    DENSE_RUNS = 4
 
     def __init__(self, ref: Sequence, wordlen: int = 8, g_max: float = 0.3,
                  sensitivity: float = 0.99, device="cuda"):
@@ -527,6 +536,13 @@ class _FixedRefBase:
                 # one copy of the (key, pos) columns to the host
                 kp = torch.stack([keys[:n], poss[:n]]).to(torch.int64)
                 self._ref_keys, self._ref_pos = kp.cpu().numpy()
+            self._ref_runs = None
+            n_keys = A ** self.wordlen
+            if n_keys <= self.DENSE_RUNS * len(ref):
+                # key k's run of the table is [runs[k], runs[k + 1])
+                self._ref_runs = np.zeros(n_keys + 1, np.int32)
+                np.cumsum(np.bincount(self._ref_keys, minlength=n_keys),
+                          out=self._ref_runs[1:])
 
     def _as_wordblot(self, cls, query: Sequence):
         wb = cls.__new__(cls)
@@ -535,7 +551,8 @@ class _FixedRefBase:
         wb.wordlen = self.wordlen
         wb.g_max, wb.sensitivity = self.g_max, self.sensitivity
         wb.seed_index = _SeedsFromRefIndex(
-            query, self.ref, self.wordlen, self._ref_keys, self._ref_pos)
+            query, self.ref, self.wordlen, self._ref_keys, self._ref_pos,
+            self._ref_runs)
         return wb
 
 
@@ -591,13 +608,13 @@ class WordBlotLocalRef(_FixedRefBase):
 
 class _SeedsFromRefIndex(SeedIndex):
     """A query's :class:`SeedIndex` against a reference's prebuilt sorted
-    k-mer table, on the host: the query's k-mers packed, two binary
-    searches over the reference keys for each window's hit run, and the
-    ragged runs expanded into flat (i, j) arrays by inverting their
-    cumulative counts (the numpy mirror of ``ops.tables.expand_join``),
-    then sorted by (d_, a)."""
+    k-mer table, on the host: the query's k-mers packed, each window's hit
+    run looked up in ``ref_runs`` (run starts by key; None: two binary
+    searches over the reference keys), and the ragged runs expanded into
+    flat (i, j) arrays by inverting their cumulative counts (the numpy
+    mirror of ``ops.tables.expand_join``), then sorted by (d_, a)."""
 
-    def __init__(self, S, T, wordlen, ref_keys, ref_pos):
+    def __init__(self, S, T, wordlen, ref_keys, ref_pos, ref_runs=None):
         with Phase("seeds.from_ref"):
             self.S, self.T = S, T
             self.wordlen = wordlen
@@ -606,11 +623,17 @@ class _SeedsFromRefIndex(SeedIndex):
             lt = len(T)
             qk = as_kmer_keys_np(S.to_array(np.int64), wordlen,
                                  len(S.alphabet))
-            starts = np.searchsorted(ref_keys, qk, side="left")
-            ends = np.searchsorted(ref_keys, qk, side="right")
+            if ref_runs is None:
+                starts = np.searchsorted(ref_keys, qk, side="left")
+                ends = np.searchsorted(ref_keys, qk, side="right")
+            else:
+                at = np.maximum(qk, 0)
+                starts = ref_runs[at].astype(np.int64)
+                ends = ref_runs[at + 1].astype(np.int64)
             counts = np.where(qk >= 0, ends - starts, 0)
             cum = np.cumsum(counts)
             total = int(cum[-1]) if counts.shape[0] else 0
+            count("seeds.served", total)
             slot = np.arange(total)
             i = np.searchsorted(cum, slot, side="right")
             rank = slot - (cum[i] - counts[i])

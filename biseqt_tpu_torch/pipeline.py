@@ -52,10 +52,10 @@ from .ops.dp_ad import banded_dp_ad, parity_adjusted_dmin
 from .ops.walk import trace_moves, traceback_walk
 from .profiling import Phase, count
 
-__all__ = ["extend_segments", "discover_and_extend", "cut_segment",
-           "extension_plan", "plan_launches", "launch_inputs", "PAD_RADIUS",
-           "PAD_A", "DIRS_BUDGET", "LAUNCH_BYTES", "PIPELINE_BYTES",
-           "launch_bytes"]
+__all__ = ["extend_segments", "discover_and_extend", "map_reads",
+           "cut_segment", "extension_plan", "plan_launches", "launch_inputs",
+           "PAD_RADIUS", "PAD_A", "DIRS_BUDGET", "LAUNCH_BYTES",
+           "PIPELINE_BYTES", "launch_bytes"]
 
 # default growth of a segment's rectangle: discovery quantizes to coarse
 # cells, and the alignment must be free to extend past the seed core
@@ -134,13 +134,19 @@ def extension_plan(segments, len_s, len_t, with_transcripts: bool, *,
     src_idx, cut, launches)``, the rows after the window split
     (transcripts only), the segment each came from, each row's cut
     (:func:`cut_segment`) and the launches (:func:`plan_launches`;
-    ``row``: on the row route, ``use_pallas=False``)."""
+    ``row``: on the row route, ``use_pallas=False``).  ``len_s`` is the
+    length of S, or a sequence of one length for each segment, whose
+    rows are then cut out of that segment's own S (:func:`map_reads`)."""
     if with_transcripts:
         rows, src_idx = _split_windows(segments, pad_radius, pad_a,
                                        int(dirs_budget))
     else:
         rows, src_idx = list(segments), list(range(len(segments)))
-    cut = [cut_segment(row, len_s, len_t, pad_radius, pad_a) for row in rows]
+    if np.ndim(len_s) == 0:
+        cut = [cut_segment(r, len_s, len_t, pad_radius, pad_a) for r in rows]
+    else:
+        cut = [cut_segment(r, len_s[k], len_t, pad_radius, pad_a)
+               for r, k in zip(rows, src_idx)]
     return rows, src_idx, cut, plan_launches(cut, with_transcripts, row=row)
 
 
@@ -210,8 +216,10 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
     ``dminq`` holds the parity-adjusted band starts the walk reads.  On
     the row route (``row``) the band is the top ``min(width, W)``
     diagonals, as the JAX package's row route has it, and there is no
-    ``dminq``."""
+    ``dminq``.  ``s_arr`` holds S's codes, or is a list of one code array
+    for each row of ``cut`` (rows cut out of different S)."""
     n_pad = _bucket(len(idxs), mini=_batch_mini(with_transcripts))
+    one_s = isinstance(s_arr, np.ndarray)
     s_codes = np.zeros((n_pad, LS), np.int8)
     t_codes = np.zeros((n_pad, LT), np.int8)
     s_lens = np.ones((n_pad,), np.int32)
@@ -222,7 +230,7 @@ def launch_inputs(cut, idxs, LS, LT, W, s_arr, t_arr,
         i_lo, i_hi, j_lo, j_hi, dl, dh = cut[idx]
         s_lens[b] = i_hi - i_lo
         t_lens[b] = j_hi - j_lo
-        s_codes[b, : s_lens[b]] = s_arr[i_lo:i_hi]
+        s_codes[b, : s_lens[b]] = (s_arr if one_s else s_arr[idx])[i_lo:i_hi]
         t_codes[b, : t_lens[b]] = t_arr[j_lo:j_hi]
         # pad on the dmin side to the shared W (the lane mask trims it)
         dmin[b] = dh - W + 1
@@ -423,12 +431,25 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     device, row = _engine_device(use_pallas, device)
     if not segments:
         return []
-    A = len(S.alphabet)
+    return _extend(S.to_array(), len(S), T, segments, subst=subst,
+                   go_score=go_score, ge_score=ge_score, row=row,
+                   device=device, device_walk=device_walk,
+                   with_transcripts=with_transcripts, pad_radius=pad_radius,
+                   pad_a=pad_a, dirs_budget=_dirs_budget, r_chunk=_r_chunk)
+
+
+def _extend(s_arr, len_s, T, segments, *, subst, go_score, ge_score, device,
+            with_transcripts, row=False, device_walk=True,
+            pad_radius=PAD_RADIUS, pad_a=PAD_A, dirs_budget=DIRS_BUDGET,
+            r_chunk=128):
+    """The body of :func:`extend_segments`: ``s_arr`` / ``len_s`` are S's
+    codes and length, or lists of one code array and one length for each
+    segment (:func:`map_reads`)."""
+    A = len(T.alphabet)
+    t_arr = T.to_array()
     if subst is None:
         subst = np.where(np.eye(A, dtype=bool), 1.0, -1.0).astype(np.float32)
     subst = np.asarray(subst, np.float32)
-    s_arr = S.to_array()
-    t_arr = T.to_array()
 
     # on a card the walk's trace is compacted there, on the CPU by the C++
     # tier
@@ -446,9 +467,12 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
                 "(with_transcripts=False)")
     with Phase("pipeline.plan"):
         segments, src_idx, cut, launches = extension_plan(
-            segments, len(S), len(T), with_transcripts,
-            pad_radius=pad_radius, pad_a=pad_a, dirs_budget=_dirs_budget,
+            segments, len_s, len(T), with_transcripts,
+            pad_radius=pad_radius, pad_a=pad_a, dirs_budget=dirs_budget,
             row=row)
+        if not isinstance(s_arr, np.ndarray):
+            # each row's S: its segment's
+            s_arr = [s_arr[k] for k in src_idx]
     B = len(cut)
     # local mode: the alignment starts and ends wherever the homology does
     flags = ModeFlags(local_start=True, local_end=True)
@@ -459,7 +483,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     dp_kw = dict(subst=subst, go=float(go_score), ge=float(ge_score),
                  flags=flags)
     if not row:
-        dp_kw["r_chunk"] = int(_r_chunk)
+        dp_kw["r_chunk"] = int(r_chunk)
 
     total_cells = sum(
         int(c[5] - c[4] + 1) * int(c[1] - c[0]) for c in cut)
@@ -483,7 +507,7 @@ def extend_segments(S, T, segments: List[Dict], *, subst=None,
     with Phase("pipeline.extend", cells=total_cells):
         for idxs, LS, LT, W in launches:
             est = launch_bytes(len(idxs), LS, LT, W, with_transcripts,
-                               int(_r_chunk), row=row)
+                               int(r_chunk), row=row)
             # finish the oldest launches first while this one would put
             # the bytes in flight past the budget (0: one at a time)
             while pending and inflight + est > PIPELINE_BYTES:
@@ -543,3 +567,55 @@ def discover_and_extend(S, T, *, wordlen: int = 8, K_min: int = 100,
         use_pallas=use_pallas, with_transcripts=with_transcripts,
         device=device)
     return sorted(extended, key=lambda s: -s["score"])
+
+
+def map_reads(mapper, reads, *, K_min: int, p_min: float, subst=None,
+              go_score=-3.0, ge_score=-1.0, with_transcripts: bool = False,
+              device="cuda"):
+    """Read mapping to a fixed reference: each read's similar segments,
+    and its best segment extended against the reference.
+
+    ``mapper``: a :class:`.blot.WordBlotLocalRef` over the reference (T);
+    ``reads``: sequences (S), the same alphabet.  Discovery is one
+    :meth:`~.blot.WordBlotLocalRef.similar_segments_batch` call.  A read's
+    best segment is the one with the most seeds (the first in discovery
+    order on a tie).  All reads' best segments are extended in one
+    extension: rows of different reads share a launch wherever their
+    bucketed shapes match, and each row equals the row that
+    ``extend_segments(read, mapper.ref, [best], ...)`` gives for that read
+    alone (so its ``source_index`` is 0).
+
+    Returns one dict a read: ``segments`` (as the discovery gives them),
+    ``best`` (the index of the best segment among them, None for a read
+    with no segment) and ``rows`` (the extension rows of the best
+    segment; none for an unmapped read).  ``device`` names the mapper's
+    device (``"cuda"`` by default, raising without a card), where the
+    call runs; a mapper on another device raises ``ValueError``.
+    """
+    device = resolve_device(device)
+    if mapper.device != device:
+        raise ValueError("map_reads(device=%s) got a mapper on %s"
+                         % (device, mapper.device))
+    reads = list(reads)
+    with Phase("map.discover"):
+        count("map.reads", len(reads))
+        found = mapper.similar_segments_batch(reads, K_min, p_min)
+        best = [max(range(len(segs)), key=lambda k: segs[k]["num_seeds"])
+                if segs else None for segs in found]
+        count("map.unmapped", best.count(None))
+    mapped = [q for q, b in enumerate(best) if b is not None]
+    out = [{"segments": segs, "best": b, "rows": []}
+           for segs, b in zip(found, best)]
+    if not mapped:
+        return out
+    with Phase("map.extend"):
+        rows = _extend([reads[q].to_array() for q in mapped],
+                       [len(reads[q]) for q in mapped], mapper.ref,
+                       [found[q][best[q]] for q in mapped], subst=subst,
+                       go_score=go_score, ge_score=ge_score, device=device,
+                       with_transcripts=with_transcripts)
+    for r in rows:
+        # the row of the read's own extension of its one best segment
+        out[mapped[r["source_index"]]]["rows"].append(
+            dict(r, source_index=0))
+    return out

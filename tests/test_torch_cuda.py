@@ -1241,6 +1241,39 @@ def test_local_ref_card_matches_cpu(rng, card):
         assert top["segment"][0][0] - 200 <= -r0 <= top["segment"][0][1] + 200
 
 
+def test_map_reads_card_matches_cpu(rng, card):
+    """Reads mapped to a 200 kbp reference on the card equal the CPU's:
+    segments (p-hat and (S0, S1) within rtol 1e-5, atol 1e-6), the best
+    choice and every row.  K1 and the walk are launched once for each
+    launch of the joint plan of the best segments."""
+    A4 = Alphabet("ACGT")
+    ref = Sequence(A4, rng.integers(0, 4, 200_000))
+    reads = [_mutated(rng, ref, 2000)[0] for _ in range(8)]
+    kw = dict(K_min=500, p_min=0.5, go_score=-3.0, ge_score=-1.0,
+              with_transcripts=True)
+    on_card = blot.WordBlotLocalRef(ref, wordlen=12, g_max=0.25, device=card)
+    on_cpu = blot.WordBlotLocalRef(ref, wordlen=12, g_max=0.25, device="cpu")
+    n = {k: launches(k) for k in ("dp_ad", "walk")}
+    got = pipeline.map_reads(on_card, reads, device=card, **kw)
+    n = {k: launches(k) - v for k, v in n.items()}
+    want = pipeline.map_reads(on_cpu, reads, device="cpu", **kw)
+    mapped = [(r, o) for r, o in zip(reads, got) if o["best"] is not None]
+    assert len(mapped) == len(reads)
+    n_plan = len(extension_plan([o["segments"][o["best"]] for _, o in mapped],
+                                [len(r) for r, _ in mapped], len(ref),
+                                True)[3])
+    assert n == {"dp_ad": n_plan, "walk": n_plan}
+    for g, w in zip(got, want):
+        assert [(s["segment"], s["num_seeds"]) for s in g["segments"]] == \
+            [(s["segment"], s["num_seeds"]) for s in w["segments"]]
+        np.testing.assert_allclose(
+            [(s["p"], *s["score"]) for s in g["segments"]],
+            [(s["p"], *s["score"]) for s in w["segments"]],
+            rtol=1e-5, atol=1e-6)
+        assert g["best"] == w["best"] and g["rows"] == w["rows"]
+        assert len(g["rows"]) == 1 and g["rows"][0]["score"] > 1000
+
+
 def test_kmer_index_card_matches_cpu(rng, card):
     """The sorted (key, seq, pos) table, an append, hits, the k-mer
     scores and what masking drops, on the card and on the CPU."""

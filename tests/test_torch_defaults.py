@@ -93,6 +93,12 @@ def _local_ref(**kw):
         [T], K_min=50, p_min=0.5))
 
 
+def _map_reads(**kw):
+    S, T = _pair_seqs()
+    return pipeline.map_reads(blot.WordBlotLocalRef(S, **kw), [T], K_min=50,
+                              p_min=0.5, with_transcripts=True, **kw)
+
+
 def _overlap_ref(**kw):
     S, T = _pair_seqs()
     return blot.WordBlotOverlapRef(S, **kw).highest_scoring_overlap_band(T)
@@ -146,6 +152,7 @@ _STATS_CALLS = {
 ENTRY_POINTS = {
     "extend_segments": (pipeline.extend_segments, _extend),
     "discover_and_extend": (pipeline.discover_and_extend, _discover),
+    "map_reads": (pipeline.map_reads, _map_reads),
     "WordBlot": (blot.WordBlot, lambda **kw: list(blot.WordBlot(
         *_pair_seqs(), **kw).similar_segments(K_min=50, p_min=0.5))),
     "WordBlotOverlap": (

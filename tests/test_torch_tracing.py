@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from biseqt_tpu_torch import blot, profiling
-from biseqt_tpu_torch.pipeline import extend_segments
+from biseqt_tpu_torch.pipeline import extend_segments, map_reads
 from biseqt_tpu_torch.sequence import Alphabet, Sequence
 
 A4 = Alphabet("ACGT")
@@ -127,6 +127,55 @@ def test_discovery_opens_its_parts(monkeypatch, assembler):
     if assembler == "dense":
         want["blot.grid"] = 1
     assert spans == want
+
+
+def test_mapping_opens_its_parts_and_counts_its_work(tmp_path):
+    """``map_reads`` opens ``map.discover`` and ``map.extend`` once a call,
+    each read's ``seeds.from_ref`` inside the first and the extension
+    inside the second, and counts the reads and the unmapped ones under
+    ``map.discover``, the seeds served under ``seeds.from_ref`` and the
+    candidates of the one statistics call under ``blot.stats``."""
+    rng = np.random.default_rng(24)
+    ref = rng.integers(0, 4, 8000)
+    reads = []
+    for r0 in (500, 4000):
+        core = ref[r0:r0 + 600].copy()
+        hit = rng.random(600) < 0.05
+        core[hit] = (core[hit] + 1 + rng.integers(0, 3, hit.sum())) % 4
+        reads.append(Sequence(A4, core))
+    # shorter than K_min: no candidate, unmapped
+    reads.append(Sequence(A4, rng.integers(0, 4, 100)))
+    mapper = blot.WordBlotLocalRef(Sequence(A4, ref), wordlen=8, g_max=0.1,
+                                   device="cpu")
+    wbs = [mapper._as_wordblot(blot.WordBlot, r) for r in reads]
+    served = sum(len(wb.seed_index.seed_arrays()[0]) for wb in wbs)
+    candidates = sum(len(wb._candidates(200, 0.6)) for wb in wbs)
+    assert served > 500 and candidates >= 2
+    call = lambda: map_reads(mapper, reads, K_min=200, p_min=0.6,
+                             with_transcripts=True, device="cpu")
+    counted0 = profiling.counts()
+    out, spans = opened(call)
+    assert [o["best"] is None for o in out] == [False, False, True]
+    assert spans["map.discover"] == spans["map.extend"] == 1
+    assert spans["seeds.from_ref"] == 3 and spans["pipeline.extend"] == 1
+    grew = lambda span, key: profiling.counts()[span][key] - counted0.get(
+        span, {}).get(key, 0)
+    assert grew("map.discover", "map.reads") == 3
+    assert grew("map.discover", "map.unmapped") == 1
+    assert grew("seeds.from_ref", "seeds.served") == served
+    assert grew("blot.stats", "blot.candidates") == candidates
+    got, events = traced(call, tmp_path)
+    assert got == out
+    have = ranges(events)
+    assert len(have["map.discover"]) == len(have["map.extend"]) == 1
+    inside = lambda r, outer: any(s <= r[0] and r[1] <= e
+                                  for s, e in have[outer])
+    assert len(have["seeds.from_ref"]) == 3
+    for inner, outer in (("seeds.from_ref", "map.discover"),
+                         ("blot.stats", "map.discover"),
+                         ("pipeline.plan", "map.extend"),
+                         ("pipeline.extend", "map.extend")):
+        assert all(inside(r, outer) for r in have[inner]), (inner, outer)
 
 
 class CountingRange:
