@@ -86,6 +86,26 @@ def _score_components(cand, wordlen: int, alphabet_len: int, device):
                           arr[:, 5], wordlen, alphabet_len, device)
 
 
+def _components(n, src, dst):
+    """Connected components of ``n`` nodes joined by the edges
+    ``src[k]``-``dst[k]``: each node's label is its component's lowest
+    node.  Roots hook to the lower root of each edge, then every label
+    jumps to its root, until every edge joins equal labels."""
+    label = np.arange(n)
+    while True:
+        lu, lv = label[src], label[dst]
+        if np.array_equal(lu, lv):
+            return label
+        low = np.minimum(lu, lv)
+        np.minimum.at(label, lu, low)
+        np.minimum.at(label, lv, low)
+        while True:
+            up = label[label]
+            if np.array_equal(up, label):
+                break
+            label = up
+
+
 def band_radius(K, gap_prob, sensitivity=0.99):
     """Diagonal band radius containing a length-K alignment w.p.
     ``sensitivity``: after K columns the path's diagonal is a sum of
@@ -311,75 +331,80 @@ class WordBlot:
     def _collect_sparse(self, K_min, dcell, acell):
         """Candidate boxes of the sparse assembler: antidiagonal runs per
         diagonal cell, merged across adjacent cells; O(#seeds log
-        #seeds), host work only.
+        #seeds), host work only, in whole-array passes.
 
-        A run boundary is "d-cell changed or a-gap > 2 cells", so one
-        pass over the (cell, a)-sorted seeds labels every run.
+        A run boundary is "d-cell changed or a-gap > 2 cells"; runs of 3
+        or more seeds are taken in stable order of their first
+        antidiagonal, and each is joined to the latest run taken before
+        it in each adjacent cell when their a-ranges, padded by a cell
+        each, meet (two runs of one cell never do).  Components come in
+        the order of their lowest run, and only boxes at least ``K_min``
+        long have their seeds counted.
         """
         d_, a = self.seed_index.seed_arrays()
-        lt = len(self.T)
         if len(d_) == 0:
             return []
-        dc = d_ // dcell
-        # order by (cell, a): run detection needs each cell's seeds in
-        # antidiagonal order whichever exact diagonal they are on
-        order0 = np.lexsort((a, dc))
-        dc, a_o = dc[order0], a[order0]
-        new_run = np.empty(len(d_), bool)
+        # (cell, a) order in one key: run detection needs each cell's
+        # seeds in antidiagonal order whichever exact diagonal they are on
+        a_span = int(a.max()) + 1
+        key = np.sort((d_ // dcell).astype(np.int64) * a_span + a)
+        dc, a_o = np.divmod(key, a_span)
+        new_run = np.empty(len(key), bool)
         new_run[0] = True
         new_run[1:] = (dc[1:] != dc[:-1]) | (np.diff(a_o) > 2 * acell)
         starts = np.flatnonzero(new_run)
-        ends = np.append(starts[1:], len(d_))
-        run_d = dc[starts]
-        run_alo = a_o[starts]
-        run_ahi = a_o[ends - 1]
-        run_n = ends - starts
-        # drop background singleton runs before merging
-        keep = run_n >= 3
-        if not keep.any():
+        ends = np.append(starts[1:], len(key))
+        # drop background runs of 1-2 seeds before merging
+        keep = ends - starts >= 3
+        R = int(keep.sum())
+        count("blot.runs", R)
+        if R == 0:
             return []
-        run_d, run_alo, run_ahi = run_d[keep], run_alo[keep], run_ahi[keep]
-        # union adjacent-diagonal runs with overlapping (padded) a-ranges
-        order = np.argsort(run_alo, kind="stable")
-        parent = np.arange(len(run_d))
-
-        def find(x):
-            while parent[x] != x:
-                parent[x] = parent[parent[x]]
-                x = parent[x]
-            return x
-
-        last_in_cell: Dict[int, int] = {}
-        for idx in order:
-            c = int(run_d[idx])
-            for cc in (c - 1, c, c + 1):
-                other = last_in_cell.get(cc)
-                if other is not None and (
-                        run_ahi[other] + acell >= run_alo[idx] - acell):
-                    ra, rb = find(idx), find(other)
-                    if ra != rb:
-                        parent[rb] = ra
-            last_in_cell[c] = idx
-        comps: Dict[int, list] = {}
-        for idx in range(len(run_d)):
-            comps.setdefault(find(idx), []).append(idx)
-
-        cand = []
-        for members in comps.values():
-            ms = np.asarray(members)
-            d_lo = int(run_d[ms].min()) * dcell
-            d_hi = (int(run_d[ms].max()) + 1) * dcell - 1
-            a_lo = int(run_alo[ms].min())
-            a_hi = int(run_ahi[ms].max())
-            # exact rectangle count (the dense path's statistics)
-            n = self.seed_index.seed_count(
-                d_band=(d_lo - lt, d_hi - lt), a_band=(a_lo, a_hi))
-            seglen = max(min((a_hi - a_lo + 1) / 2.0,
-                             float(min(len(self.S), len(self.T)))), 1.0)
-            if seglen < K_min:
-                continue
-            cand.append((d_lo, d_hi, a_lo, a_hi, n, seglen))
-        return cand
+        run_d = dc[starts[keep]]
+        run_alo = a_o[starts[keep]]
+        run_ahi = a_o[ends[keep] - 1]
+        rank = np.empty(R, np.int64)
+        rank[np.argsort(run_alo, kind="stable")] = np.arange(R)
+        # runs are in (cell, a) order and a cell's runs in rank order, so
+        # this ascends: a run's latest predecessor in cell c is the last
+        # entry below c * R + its rank
+        cell_rank = run_d * R + rank
+        src, dst = [], []
+        for side in (-1, 1):
+            pred = np.searchsorted(cell_rank, (run_d + side) * R + rank) - 1
+            at = np.maximum(pred, 0)
+            meet = ((pred >= 0) & (run_d[at] == run_d + side)
+                    & (run_ahi[at] + acell >= run_alo - acell))
+            src.append(np.flatnonzero(meet))
+            dst.append(pred[meet])
+        label = _components(R, np.concatenate(src), np.concatenate(dst))
+        # each component's box from its runs; labels are lowest members
+        by = np.argsort(label, kind="stable")
+        heads = np.flatnonzero(np.diff(label[by], prepend=-1))
+        c_lo = np.minimum.reduceat(run_d[by], heads)
+        c_hi = np.maximum.reduceat(run_d[by], heads)
+        a_lo = np.minimum.reduceat(run_alo[by], heads)
+        a_hi = np.maximum.reduceat(run_ahi[by], heads)
+        seglen = np.maximum(np.minimum((a_hi - a_lo + 1) / 2.0,
+                                       float(min(len(self.S), len(self.T)))),
+                            1.0)
+        long_ = seglen >= K_min
+        count("blot.counted", int(long_.sum()))
+        if not long_.any():
+            return []
+        c_lo, c_hi, a_lo, a_hi, seglen = (
+            x[long_] for x in (c_lo, c_hi, a_lo, a_hi, seglen))
+        # exact rectangle counts (the dense path's statistics), a box's
+        # whole cells each searched in the sorted key
+        width = c_hi - c_lo + 1
+        first = np.cumsum(width) - width
+        cell = np.arange(width.sum()) - np.repeat(first - c_lo, width)
+        lo = np.searchsorted(key, cell * a_span + np.repeat(a_lo, width))
+        hi = np.searchsorted(key, cell * a_span + np.repeat(a_hi, width),
+                             side="right")
+        n = np.add.reduceat(hi - lo, first)
+        return list(zip(*(x.tolist() for x in (
+            c_lo * dcell, (c_hi + 1) * dcell - 1, a_lo, a_hi, n, seglen))))
 
     def _best_fallback(self, K_min, p_min) -> Dict:
         """One segment around the densest band, for a caller who wants a

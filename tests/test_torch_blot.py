@@ -7,7 +7,10 @@ assemblers (the dense grid, and the sparse run merging forced by
 (S0, S1) scores to rtol 1e-5, atol 1e-6, printing the largest |d|.  The
 planted homologies keep p̂ away from p_min.  Also held: the grid and its
 3x3 sums, the fallback's densest band on pairs with no segment (a
-seedless one among them), per-seed scores, and the overlap mode.
+seedless one among them), per-seed scores, and the overlap mode.  The
+sparse assembler's candidate tuples are also held to the JAX package's
+loop on seeds laid out by hand to stress its merge rule, and its
+connected components to scipy's.
 
 The fixed-reference modes and ``WordBlotMultiple`` have one tier in the
 port (the reference's table or the N-way k-mer table sorted on the
@@ -24,6 +27,8 @@ its device tier does.
 
 import numpy as np
 import pytest
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import connected_components
 
 from biseqt_tpu import blot as ref
 from biseqt_tpu.sequence import Alphabet
@@ -120,6 +125,144 @@ def test_similar_segments_sparse_match(seed, planted, kw, K_min, p_min):
         port.WordBlot.MAX_GRID_CELLS = 1 << 22
     assert want, "no sparse segment: the case is vacuous"
     _same_segments(got, want)
+
+
+# the sparse assembler's rule on seeds laid out by hand: runs given as
+# (d-cell, first a, seeds, a-step) at DCELL 5 and ACELL 10, so a run
+# breaks at an a-gap over 20 and two runs of adjacent cells meet when
+# the later one starts at most 20 after the earlier one ends
+DCELL, ACELL = 5, 10
+SPARSE_LAYOUTS = {  # name: (runs, K_min, |S|)
+    # equal first antidiagonals across adjacent cells
+    "ties": ([(3, 100, 5, 4), (4, 100, 5, 4), (2, 100, 4, 6),
+              (5, 130, 3, 3), (6, 100, 4, 5), (7, 100, 3, 9)], 10, 5000),
+    # one chain through five cells, a second through three, apart
+    "chains": ([(1, 100, 6, 5), (2, 140, 6, 5), (3, 180, 6, 5),
+                (4, 220, 6, 5), (5, 260, 6, 5), (9, 400, 4, 5),
+                (10, 425, 4, 5), (11, 450, 4, 5), (10, 700, 3, 5)],
+               10, 5000),
+    # a long run whose padded range meets two runs of the next cell and
+    # one of the cell before; a third run of the next cell stays apart
+    "fork": ([(3, 100, 30, 5), (4, 110, 3, 5), (4, 160, 3, 5),
+              (4, 300, 4, 5), (2, 240, 3, 5), (2, 290, 3, 5)], 10, 5000),
+    # runs of 1-2 seeds between a cell's kept runs, and beside them
+    "short_runs": ([(3, 100, 4, 5), (3, 140, 2, 5), (3, 170, 1, 1),
+                    (3, 200, 5, 5), (4, 125, 2, 3), (4, 230, 1, 1),
+                    (2, 150, 2, 4)], 10, 5000),
+    # components shorter than K_min among longer ones, and one of
+    # exactly K_min (119 antidiagonals after its first)
+    "short_boxes": ([(1, 100, 3, 2), (2, 110, 3, 2), (5, 200, 25, 8),
+                     (6, 300, 4, 8), (8, 900, 3, 3), (9, 1000, 12, 10),
+                     (12, 1500, 18, 7)], 60, 5000),
+    # the segment length clamped to |S|, once at K_min and once below
+    "clamped": ([(1, 100, 30, 10), (4, 600, 20, 10)], 40, 40),
+    "clamped_out": ([(1, 100, 30, 10), (4, 600, 20, 10)], 41, 40),
+    # no run of three seeds at all
+    "no_run": ([(1, 100, 2, 5), (2, 100, 1, 1), (3, 400, 2, 9),
+                (3, 500, 2, 9)], 1, 5000),
+}
+
+
+class _BruteSeeds:
+    """Seed arrays, with counts by a scan of every seed."""
+
+    def __init__(self, d_, a, lt):
+        self.d_, self.a, self.lt = d_, a, lt
+
+    def seed_arrays(self):
+        return self.d_, self.a
+
+    def seed_count(self, d_band, a_band):
+        d = self.d_ - self.lt
+        return int(((d >= d_band[0]) & (d <= d_band[1])
+                    & (self.a >= a_band[0]) & (self.a <= a_band[1])).sum())
+
+
+def _layout_seeds(runs, rng, noise=0):
+    """(d_, a) of the runs, each seed on a random diagonal of its cell,
+    plus ``noise`` scattered seeds, unique and sorted by (d_, a)."""
+    d_, a = [], []
+    for cell, a0, n, step in runs:
+        a.extend(a0 + step * np.arange(n))
+        d_.extend(cell * DCELL + rng.integers(0, DCELL, n))
+    d_ = np.concatenate([np.asarray(d_, np.int64),
+                         rng.integers(0, 16 * DCELL, noise)])
+    a = np.concatenate([np.asarray(a, np.int64),
+                        rng.integers(0, 3000, noise)])
+    d_, a = np.unique(np.stack([d_, a]), axis=1)
+    return d_, a
+
+
+def _random_layout(seed):
+    """Runs of 1-8 seeds, steps up to 12, in 14 adjacent cells, about
+    half of them in a few clusters so that they chain; random K_min."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for _ in range(int(rng.integers(1, 5))):
+        c0, a0 = int(rng.integers(0, 10)), int(rng.integers(0, 2500))
+        for _ in range(int(rng.integers(2, 12))):
+            runs.append((c0 + int(rng.integers(0, 4)),
+                         a0 + int(rng.integers(-30, 120)),
+                         int(rng.integers(1, 9)), int(rng.integers(1, 13))))
+    for _ in range(int(rng.integers(0, 30))):
+        runs.append((int(rng.integers(0, 14)), int(rng.integers(0, 3000)),
+                     int(rng.integers(1, 9)), int(rng.integers(1, 13))))
+    K_min = int(rng.choice([1, 20, 45, 100]))
+    return runs, K_min, 5000, int(rng.integers(0, 200))
+
+
+@pytest.mark.parametrize("layout", list(SPARSE_LAYOUTS)
+                         + ["random%d" % k for k in range(12)])
+def test_sparse_assembler_keeps_the_loops_rule(layout):
+    """The port's whole-array sparse assembler gives the JAX package's
+    loop's candidate tuples, in its order, on seeds that stress the
+    rule: ties in the runs' first antidiagonals across adjacent cells,
+    chains through three or more cells, one run meeting two of an
+    adjacent cell, runs of 1-2 seeds between kept runs, boxes shorter
+    than K_min, no run of three at all, and random layouts."""
+    if layout.startswith("random"):
+        runs, K_min, ls, noise = _random_layout(int(layout[6:]))
+    else:
+        (runs, K_min, ls), noise = SPARSE_LAYOUTS[layout], 0
+    lt = 5000
+    d_, a = _layout_seeds(runs, np.random.default_rng(len(runs)), noise)
+    boxes = []
+    for mod in (ref, port):
+        wb = mod.WordBlot.__new__(mod.WordBlot)
+        wb.S, wb.T = np.zeros(ls), np.zeros(lt)
+        wb.seed_index = _BruteSeeds(d_, a, lt)
+        boxes.append(wb._collect_sparse(K_min, DCELL, ACELL))
+    want, got = boxes
+    assert got == want
+    assert [type(x) for box in got for x in box] == \
+        [type(x) for box in want for x in box]
+    if layout in ("no_run", "clamped_out"):
+        assert not want
+    elif not layout.startswith("random"):
+        assert want, "no candidate: the case is vacuous"
+
+
+@pytest.mark.parametrize("graph", ["path", "random", "edgeless"])
+def test_components_label_each_by_its_lowest_node(graph):
+    """The sparse assembler's connected components against scipy's: a
+    path through 5000 nodes in random order, a random graph of 5000
+    nodes and edges, and no edge at all."""
+    n = 5000
+    rng = np.random.default_rng(23)
+    if graph == "path":
+        perm = rng.permutation(n)
+        src, dst = perm[1:], perm[:-1]
+    elif graph == "random":
+        src, dst = rng.integers(0, n, n), rng.integers(0, n, n)
+    else:
+        src = dst = np.zeros(0, np.int64)
+    label = port._components(n, src, dst)
+    k, comp = connected_components(
+        coo_matrix((np.ones(len(src)), (src, dst)), shape=(n, n)),
+        directed=False)
+    lowest = np.full(k, n)
+    np.minimum.at(lowest, comp, np.arange(n))
+    assert np.array_equal(label, lowest[comp])
 
 
 @pytest.mark.parametrize("pair", ["seedless", "unrelated"])

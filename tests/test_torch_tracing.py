@@ -107,7 +107,8 @@ def test_extension_opens_its_parts_and_they_nest(pair, tmp_path):
 def test_discovery_opens_its_parts(monkeypatch, assembler):
     """Word-Blot opens the seeds' fetch, and the candidates' assembly on
     either assembler; the dense one builds the grid first, the sparse
-    one has none."""
+    one has none, and counts under the assembly the runs it merges and
+    the boxes whose seeds it counts, one a candidate it returns."""
     rng = np.random.default_rng(7)
     core = rng.integers(0, 4, 3000)
     mut = core.copy()
@@ -120,6 +121,7 @@ def test_discovery_opens_its_parts(monkeypatch, assembler):
     wb, spans = opened(lambda: blot.WordBlot(S, T, wordlen=8, g_max=0.1,
                                              device="cpu"))
     assert spans == {"seeds.build": 1, "seeds.fetch": 1}
+    counted0 = profiling.counts().get("blot.components", {})
     segs, spans = opened(lambda: list(wb.similar_segments(K_min=500,
                                                           p_min=0.6)))
     assert len(segs) == 1 and segs[0]["num_seeds"] > 1000
@@ -127,6 +129,15 @@ def test_discovery_opens_its_parts(monkeypatch, assembler):
     if assembler == "dense":
         want["blot.grid"] = 1
     assert spans == want
+    grew = {k: v - counted0.get(k, 0) for k, v in
+            profiling.counts().get("blot.components", {}).items()
+            if v != counted0.get(k, 0)}
+    if assembler == "sparse":
+        assert set(grew) == {"blot.runs", "blot.counted"}
+        assert grew["blot.counted"] == len(wb._candidates(500, 0.6)) >= 1
+        assert grew["blot.runs"] >= grew["blot.counted"]
+    else:
+        assert grew == {}
 
 
 def test_mapping_opens_its_parts_and_counts_its_work(tmp_path):
